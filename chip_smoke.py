@@ -1,0 +1,402 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
+
+    python3 chip_smoke.py
+
+Phases, in order; any failure raises and exits non-zero:
+
+1. build  - compile every CUDA kernel of the serving path from
+   ``src/repro_torch/csrc`` (one nvcc per source, all in parallel);
+2. kernels - hold each kernel against its plain PyTorch version on the
+   card at the serving path's shapes, and time the kernel, the plain
+   version and the one PyTorch call that computes the same function;
+3. serve  - TinyLlama-1.1B at full width (22 layers, bf16, seeded random
+   weights): ``repro_torch.launch.serve.generate`` with batch 8, a
+   1024-token prompt and 64 new tokens, counting kernel launches; then
+   one prefill and 8 decode steps under torch.profiler (device time by
+   kernel, device idle share);
+4. check  - the same port at full width and 2 layers in float32, on the
+   card and on the CPU (plain versions) from the same weights: prefill
+   logits and the first 8 greedy tokens must agree.
+
+The last lines are the card's name and power limit (nvidia-smi), one JSON
+line ``{"kernels": [...]}`` and ``{"ok": true, "device": {...}}``.
+"""
+from __future__ import annotations
+
+import copy
+import dataclasses
+import json
+import pathlib
+import subprocess
+import sys
+import time
+
+ROOT = pathlib.Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+import torch  # noqa: E402
+import torch.nn.functional as F  # noqa: E402
+
+# H100 SXM data-sheet peaks (dense): bf16 tensor cores, fp32 FMA pipes, HBM3.
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_BYTES_PER_S = 3.35e12
+
+SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 8, 1024, 64
+CHECK_LAYERS, CHECK_BATCH, CHECK_PROMPT, CHECK_TOKENS = 2, 2, 200, 8
+SEED = 0
+
+
+def log(phase: str, msg) -> None:
+    if not isinstance(msg, str):
+        msg = json.dumps(msg)
+    print(f"[{phase}] {msg}", flush=True)
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise RuntimeError(f"check failed: {msg}")
+
+
+def time_ms(fn, iters: int, warmup: int = 2, repeats: int = 3) -> float:
+    """Median over ``repeats`` of the mean device time of one call, by
+    CUDA events around ``iters`` calls."""
+    for _ in range(warmup):
+        fn()
+    runs = []
+    for _ in range(repeats):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        runs.append(start.elapsed_time(end) / iters)
+    return sorted(runs)[len(runs) // 2]
+
+
+def bound_ms(flops: float, nbytes: float, dtype) -> tuple:
+    t_ops = flops / PEAK_FLOPS[dtype]
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops > t_bytes else "bytes")
+
+
+def card_line() -> str:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+# ---------------------------------------------------------------------------
+# 1. build
+# ---------------------------------------------------------------------------
+def phase_build():
+    from repro_torch.kernels import _build
+    t0 = time.perf_counter()
+    _build.build_all(["rmsnorm", "flash_attention"])
+    log("build", f"2 sources in {time.perf_counter() - t0:.2f}s into "
+        f"{_build.BUILD_DIR}")
+    for name, rec in _build.BUILD_LOG.items():
+        for line in rec["log"].splitlines():
+            if "registers" in line or "spill" in line:
+                log("build", f"{name}: {line.strip()}")
+
+
+# ---------------------------------------------------------------------------
+# 2. kernels against their plain versions
+# ---------------------------------------------------------------------------
+def _attn_live_pairs(s: int, window, causal: bool) -> int:
+    """(query, key) pairs the mask leaves, per (batch, head)."""
+    r = torch.arange(s, dtype=torch.int64)
+    hi = r if causal else torch.full_like(r, s - 1)
+    lo = (r - window + 1).clamp(min=0) if window else torch.zeros_like(r)
+    return int((hi - lo + 1).clamp(min=0).sum())
+
+
+FLASH_CASES = [
+    # name, b, hq, hkv, s, d, window, softcap, causal, dtype
+    ("main", 8, 32, 4, 1024, 64, None, 0.0, True, torch.bfloat16),
+    ("ragged", 2, 32, 4, 1000, 64, None, 0.0, True, torch.bfloat16),
+    ("window_softcap", 2, 8, 4, 1024, 64, 256, 50.0, True, torch.bfloat16),
+    ("noncausal", 2, 32, 4, 1000, 64, None, 0.0, False, torch.bfloat16),
+    ("fp32", 2, 32, 4, 512, 64, None, 0.0, True, torch.float32),
+    ("d128", 1, 16, 8, 300, 128, 100, 0.0, True, torch.bfloat16),
+    ("d32", 1, 8, 2, 130, 32, None, 30.0, False, torch.float32),
+    # head_dim 16: the reduced configs (``--reduced``) on the card
+    ("d16", 2, 4, 2, 77, 16, 16, 0.0, True, torch.bfloat16),
+]
+# tolerances: bf16 outputs differ by one bf16 rounding (2e-2 as in the
+# reference's kernel sweeps); fp32 by the order of sums and exp2/log.
+FLASH_TOL = {torch.bfloat16: (2e-2, 1e-3), torch.float32: (1e-4, 1e-4)}
+
+
+def phase_flash(gen):
+    from repro_torch.kernels import flash_attention as fa
+    record = None
+    for name, b, hq, hkv, s, d, win, cap, causal, dt in FLASH_CASES:
+        q = torch.randn(b, hq, s, d, device="cuda", generator=gen).to(dt)
+        k = torch.randn(b, hkv, s, d, device="cuda", generator=gen).to(dt)
+        v = torch.randn(b, hkv, s, d, device="cuda", generator=gen).to(dt)
+        kw = {"causal": causal, "softcap": cap}
+        o, lse = fa.flash_attention_fwd(q, k, v, win, **kw)
+        o_p, lse_p = fa.flash_attention_plain(q, k, v, win, **kw)
+        torch.cuda.synchronize()
+        err = (o.float() - o_p.float()).abs().max().item()
+        lse_err = (lse - lse_p).abs().max().item()
+        o_tol, lse_tol = FLASH_TOL[dt]
+        rec = {"case": name, "shape": [b, hq, hkv, s, d], "dtype": str(dt),
+               "window": win, "softcap": cap, "causal": causal,
+               "max_abs_err": err, "lse_max_abs_err": lse_err,
+               "tol": o_tol, "lse_tol": lse_tol}
+        check(bool(torch.isfinite(o.float()).all()), f"flash {name}: finite")
+        check(err <= o_tol and lse_err <= lse_tol,
+              f"flash {name}: kernel vs plain {err} (tol {o_tol}), lse "
+              f"{lse_err} (tol {lse_tol})")
+        if name == "main":
+            flops = 4.0 * d * _attn_live_pairs(s, win, causal) * b * hq
+            nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size() \
+                + lse.numel() * 4
+            rec["bound_ms"], rec["bound_by"] = bound_ms(flops, nbytes, dt)
+            rec["ms"] = time_ms(lambda: fa.flash_attention_fwd(q, k, v, win,
+                                                               **kw), 20)
+            rec["plain_ms"] = time_ms(
+                lambda: fa.flash_attention_plain(q, k, v, win, **kw), 5)
+            rec["library_ms"] = time_ms(
+                lambda: F.scaled_dot_product_attention(
+                    q, k, v, is_causal=causal, enable_gqa=True), 20)
+            record = rec
+        log("kernel", {"name": "flash_attention_fwd", **rec})
+    return record
+
+
+RMSNORM_CASES = [
+    # name, shape, dtype, weight_offset
+    ("prefill", (SERVE_BATCH * SERVE_PROMPT, 2048), torch.bfloat16, 0.0),
+    ("decode", (SERVE_BATCH, 1, 2048), torch.bfloat16, 0.0),
+    ("fp32", (SERVE_BATCH * SERVE_PROMPT, 2048), torch.float32, 0.0),
+    ("offset_scalar_path", (1000, 2050), torch.bfloat16, 1.0),
+]
+# one bf16 rounding of the output (2^-7 relative); fp32: order of sums
+RMSNORM_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-5}
+
+
+def phase_rmsnorm(gen):
+    from repro_torch.kernels import rmsnorm as rn
+    record = None
+    for name, shape, dt, off in RMSNORM_CASES:
+        x = torch.randn(shape, device="cuda", generator=gen).to(dt)
+        w = (1.0 + 0.1 * torch.randn(shape[-1], device="cuda",
+                                     generator=gen)).to(dt)
+        kw = {"eps": 1e-6, "weight_offset": off}
+        y = rn.rmsnorm(x, w, **kw)
+        y_p = rn.rmsnorm_plain(x, w, **kw)
+        torch.cuda.synchronize()
+        err = (y.float() - y_p.float()).abs().max().item()
+        tol = RMSNORM_TOL[dt]
+        check(torch.allclose(y.float(), y_p.float(), rtol=tol, atol=tol),
+              f"rmsnorm {name}: kernel vs plain {err} (rtol=atol={tol})")
+        nbytes = (2 * x.numel() + w.numel()) * x.element_size()
+        rec = {"case": name, "shape": list(shape), "dtype": str(dt),
+               "weight_offset": off, "max_abs_err": err, "tol": tol}
+        rec["bound_ms"], rec["bound_by"] = bound_ms(4.0 * x.numel(), nbytes,
+                                                    dt)
+        rec["ms"] = time_ms(lambda: rn.rmsnorm(x, w, **kw), 50)
+        rec["plain_ms"] = time_ms(lambda: rn.rmsnorm_plain(x, w, **kw), 20)
+        rec["library_ms"] = (time_ms(lambda: F.rms_norm(
+            x, (shape[-1],), w, eps=1e-6), 50) if off == 0.0 else None)
+        if name == "prefill":
+            record = rec
+        log("kernel", {"name": "rmsnorm", **rec})
+    return record
+
+
+# ---------------------------------------------------------------------------
+# 3. serve at full width
+# ---------------------------------------------------------------------------
+def phase_serve():
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rmsnorm as rn
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import ExecConfig, build_model
+
+    cfg = get_config("tinyllama-1.1b")
+    ex = ExecConfig(param_dtype=torch.bfloat16, compute_dtype=torch.bfloat16,
+                    device="cuda")
+    model = build_model(cfg).init(SEED, ex)
+    n_params = sum(p.numel() for p in model.parameters())
+    log("serve", f"{cfg.name}: {cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {n_params / 1e9:.3f} B params in bf16")
+    # first call: cuBLAS and allocator warm-up, not counted
+    generate(cfg, ex, SERVE_PROMPT, 4, SERVE_BATCH, SEED, model=model)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.launches = 0
+    rn.launches = 0
+    g = generate(cfg, ex, SERVE_PROMPT, SERVE_GEN, SERVE_BATCH, SEED,
+                 model=model)
+    launches = {"flash_attention_fwd": fa.launches, "rmsnorm": rn.launches}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    n_norms = 2 * cfg.n_layers + 1
+    log("serve", f"main-path launches {launches}; expected flash "
+        f"{cfg.n_layers}, rmsnorm {n_norms} x {SERVE_GEN}")
+    check(launches["flash_attention_fwd"] == cfg.n_layers,
+          "one flash launch per layer in prefill")
+    check(launches["rmsnorm"] == n_norms * SERVE_GEN,
+          "2 per layer + final norm, in prefill and every decode step")
+    check(tuple(g.tokens.shape) == (SERVE_BATCH, SERVE_GEN), "token shape")
+    check(int(g.tokens.min()) >= 0 and int(g.tokens.max()) < cfg.vocab,
+          "tokens in range")
+    check(tuple(g.prefill_logits.shape) == (SERVE_BATCH, cfg.vocab)
+          and bool(torch.isfinite(g.prefill_logits.float()).all()),
+          "finite prefill logits")
+    n_decode = SERVE_GEN - 1
+    total_s = g.prefill_s + g.decode_s
+    log("serve", {"batch": SERVE_BATCH, "prompt": SERVE_PROMPT,
+                  "gen": SERVE_GEN, "prefill_ms": g.prefill_s * 1e3,
+                  "decode_ms_per_step": g.decode_s * 1e3 / n_decode,
+                  "prompt_tokens_per_s": SERVE_BATCH * SERVE_PROMPT
+                  / g.prefill_s,
+                  "decode_tokens_per_s": SERVE_BATCH * n_decode / g.decode_s,
+                  "generated_tokens_per_s": SERVE_BATCH * SERVE_GEN / total_s,
+                  "peak_mem_gb": peak_gb})
+    return launches, (cfg, ex, model)
+
+
+# ---------------------------------------------------------------------------
+# 3b. where the serving time goes (torch.profiler, after the counted run)
+# ---------------------------------------------------------------------------
+PROFILE_DECODE_STEPS = 8
+
+
+def phase_profile(cfg, ex, model):
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models import build_model
+
+    fns = build_model(cfg)
+    batch = fns.make_batch(SEED + 1, ShapeConfig(
+        "serve", "prefill", SERVE_PROMPT, SERVE_BATCH), ex)
+    cache = fns.init_cache(SERVE_BATCH, SERVE_PROMPT + PROFILE_DECODE_STEPS,
+                           ex)
+    prefill = make_prefill_step(cfg, ex)
+    decode = make_serve_step(cfg, ex)
+    tok = batch["tokens"][:, -1]
+
+    def run_decode():
+        for i in range(PROFILE_DECODE_STEPS):
+            decode(model, cache, tok, SERVE_PROMPT + i)
+
+    windows = (("prefill", lambda: prefill(model, batch, cache), 1),
+               ("decode", run_decode, PROFILE_DECODE_STEPS))
+    for name, fn, n_calls in windows:
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        # device-side events only: a CPU op's self device time repeats
+        # the time of the kernels it launched
+        by_key = [(e.key, e.self_device_time_total / 1e3, e.count)
+                  for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA]
+        by_key = sorted((k for k in by_key if k[1] > 0), key=lambda k: -k[1])
+        busy_ms = sum(k[1] for k in by_key)
+        check(busy_ms > 0, f"profile {name}: the trace holds device time")
+        log("profile", {
+            "window": name, "calls": n_calls, "wall_ms": wall_ms,
+            "device_busy_ms": busy_ms,
+            "device_idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
+            "top_kernels": [{"name": k[:90], "ms": ms, "launches": c,
+                             "share_of_busy": ms / busy_ms}
+                            for k, ms, c in by_key[:10]]})
+
+
+# ---------------------------------------------------------------------------
+# 4. the slice on the card against the same port on the CPU
+# ---------------------------------------------------------------------------
+CHECK_LOGIT_TOL = 1e-3   # fp32 both sides; sums run in another order
+
+
+def phase_check():
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import ExecConfig, build_model
+
+    cfg = dataclasses.replace(get_config("tinyllama-1.1b"),
+                              n_layers=CHECK_LAYERS)
+    ex_cpu = ExecConfig(device="cpu")
+    ex_gpu = ExecConfig(device="cuda")
+    model_cpu = build_model(cfg).init(SEED, ex_cpu)
+    model_gpu = copy.deepcopy(model_cpu).to("cuda")
+    runs = {}
+    for name, ex, model in (("cuda", ex_gpu, model_gpu),
+                            ("cpu", ex_cpu, model_cpu)):
+        runs[name] = generate(cfg, ex, CHECK_PROMPT, CHECK_TOKENS,
+                              CHECK_BATCH, SEED, model=model)
+    err = (runs["cuda"].prefill_logits.cpu()
+           - runs["cpu"].prefill_logits).abs().max().item()
+    same = torch.equal(runs["cuda"].tokens.cpu(), runs["cpu"].tokens)
+    log("check", f"full width, {CHECK_LAYERS} layers, fp32, batch "
+        f"{CHECK_BATCH}, prompt {CHECK_PROMPT}: max prefill logit err "
+        f"{err:.3e} (tol {CHECK_LOGIT_TOL}), first {CHECK_TOKENS} greedy "
+        f"tokens equal: {same}")
+    check(err <= CHECK_LOGIT_TOL, "card logits match the CPU run")
+    check(same, "card greedy tokens match the CPU run")
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    import repro_torch  # noqa: F401  (fails outside a checkout of the repo)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    log("header", f"torch {torch.__version__} cuda {torch.version.cuda} "
+        f"python {sys.version.split()[0]} devices "
+        f"{torch.cuda.device_count()}")
+    phase_build()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    records = {"flash_attention_fwd": phase_flash(gen),
+               "rmsnorm": phase_rmsnorm(gen)}
+    launches, served = phase_serve()
+    phase_profile(*served)
+    phase_check()
+
+    meta = {"flash_attention_fwd": ("src/repro_torch/csrc/flash_attention.cu",
+                                    "src/repro/kernels/flash_attention.py:90"),
+            "rmsnorm": ("src/repro_torch/csrc/rmsnorm.cu",
+                        "src/repro/kernels/rmsnorm.py:26")}
+    kernels = []
+    for name, rec in records.items():
+        source, replaces = meta[name]
+        kernels.append({"name": name, "route": "cuda", "source": source,
+                        "replaces": replaces, "launches": launches[name],
+                        "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
+                        "plain_ms": rec["plain_ms"],
+                        "bound_ms": rec["bound_ms"],
+                        "bound_by": rec["bound_by"],
+                        "library_ms": rec["library_ms"]})
+    print(card_line())
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,67 @@
+"""Build the CUDA sources in ``repro_torch/csrc`` and load them with ctypes.
+
+Each ``csrc/<name>.cu`` is compiled by its own ``nvcc`` into
+``build/kernels/lib<name>.so`` at the repository root (listed in
+``.gitignore``) and exposes a plain C interface, so no PyTorch header is
+compiled: a build takes seconds.  Nothing is built at import; the first
+launch of a kernel builds it, and ``build_all()`` builds every source at
+once, one ``nvcc`` process per source, all started together.
+"""
+from __future__ import annotations
+
+import ctypes
+import os
+import pathlib
+import shutil
+import subprocess
+import time
+
+CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_LIBS: dict = {}
+BUILD_LOG: dict = {}
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels are built on a "
+                       "machine with the CUDA toolkit")
+
+
+def _start(name: str) -> subprocess.Popen:
+    src = CSRC / f"{name}.cu"
+    if not src.exists():
+        raise FileNotFoundError(src)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out = BUILD_DIR / f"lib{name}.so"
+    return subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", str(out), str(src)],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+
+
+def _finish(name: str, proc: subprocess.Popen, t0: float) -> None:
+    log, _ = proc.communicate()
+    BUILD_LOG[name] = {"seconds": time.perf_counter() - t0, "log": log}
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for csrc/{name}.cu:\n{log}")
+    _LIBS[name] = ctypes.CDLL(str(BUILD_DIR / f"lib{name}.so"))
+
+
+def build_all(names) -> None:
+    """Compile every named source in parallel and load the libraries."""
+    t0 = time.perf_counter()
+    procs = {n: _start(n) for n in names if n not in _LIBS}
+    for n, p in procs.items():
+        _finish(n, p, t0)
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, built on first use."""
+    if name not in _LIBS:
+        build_all([name])
+    return _LIBS[name]

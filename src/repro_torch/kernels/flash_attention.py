@@ -1,0 +1,130 @@
+"""Flash-attention forward: the CUDA kernel's wrapper, its plain version,
+its launch count.
+
+The kernel (``csrc/flash_attention.cu``) replaces the Pallas TPU kernel
+``repro/kernels/flash_attention.py::flash_attention_fwd``.  The wrapper
+keeps that name: ``flash_attention_fwd`` launches the kernel on CUDA
+tensors only; ``flash_attention_plain`` is the same function in plain
+PyTorch, which the CPU path and the comparisons on the card use.  Both
+take q (B, Hq, S, D) and k/v (B, Hkv, S, D) and return
+(o (B, Hq, S, D) in q.dtype, lse (B, Hq, S) in float32).
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.ref import NEG_INF
+
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+HEAD_DIMS = (16, 32, 64, 128)
+KERNEL_BLOCK = 64   # the kernel's q and k tile
+
+# Times flash_attention_fwd has launched its kernel in this process.
+launches = 0
+
+
+def _check_window(window, s, block):
+    """None means "never limits" (S + block, as the Pallas kernel)."""
+    if window is None:
+        return s + block
+    window = int(window)
+    if window < 1:
+        raise ValueError(f"window must be >= 1, got {window}")
+    return min(window, s + block)   # wider never limits; fits a C int
+
+
+def flash_attention_plain(q, k, v, window=None, *, causal=True, softcap=0.0,
+                          scale=None, block=128):
+    """The kernel's function in plain PyTorch: the online softmax over
+    ``block``-key tiles, in float32, with the kernel's masking."""
+    b, hq, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    if sq != sk:
+        raise ValueError(f"self-attention only: Sq={sq} != Sk={sk}")
+    if scale is None:
+        scale = d ** -0.5
+    win = _check_window(window, sk, block)
+    group = hq // hkv
+    qf = q.float()
+    rows = torch.arange(sq, device=q.device)[:, None]
+    acc = torch.zeros((b, hq, sq, d), dtype=torch.float32, device=q.device)
+    m = torch.full((b, hq, sq), NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros((b, hq, sq), dtype=torch.float32, device=q.device)
+    for k0 in range(0, sk, block):
+        kb = k[:, :, k0:k0 + block].float().repeat_interleave(group, dim=1)
+        vb = v[:, :, k0:k0 + block].float().repeat_interleave(group, dim=1)
+        s = torch.einsum("bhqd,bhkd->bhqk", qf, kb) * scale
+        if softcap:
+            s = softcap * torch.tanh(s / softcap)
+        cols = k0 + torch.arange(kb.shape[2], device=q.device)[None, :]
+        mask = (rows - cols) < win
+        if causal:
+            mask &= cols <= rows
+        s = torch.where(mask[None, None], s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[..., None])
+        l = l * alpha + p.sum(-1)
+        acc = acc * alpha[..., None] + torch.einsum("bhqk,bhkd->bhqd", p, vb)
+        m = m_new
+    lsafe = torch.where(l == 0.0, 1.0, l)
+    return (acc / lsafe[..., None]).to(q.dtype), m + torch.log(lsafe)
+
+
+@functools.cache
+def _fn():
+    fn = _build.load("flash_attention").flash_attention_fwd
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [
+        ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def flash_attention_fwd(q, k, v, window=None, *, causal=True, softcap=0.0,
+                        scale=None):
+    """Launch the kernel.  q, k, v: contiguous float32 or bfloat16 CUDA
+    tensors of one dtype, Sq == Sk, head_dim in HEAD_DIMS, Hq % Hkv == 0."""
+    global launches
+    if not all(t.is_cuda and t.device == q.device for t in (q, k, v)):
+        raise ValueError("flash_attention_fwd takes q, k, v on one CUDA "
+                         "device")
+    if q.dtype not in DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"flash_attention_fwd takes float32 or bfloat16 "
+                        f"q, k, v of one dtype, got {q.dtype}, {k.dtype}, "
+                        f"{v.dtype}")
+    if q.dim() != 4 or k.shape != v.shape or k.dim() != 4:
+        raise ValueError("q: (B, Hq, S, D); k, v: (B, Hkv, S, D)")
+    b, hq, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    if k.shape[0] != b or k.shape[3] != d or sq != sk:
+        raise ValueError(f"self-attention only: q {tuple(q.shape)}, "
+                         f"k {tuple(k.shape)}")
+    if d not in HEAD_DIMS or hkv == 0 or hq % hkv:
+        raise ValueError(f"head_dim must be one of {HEAD_DIMS} and Hq a "
+                         f"multiple of Hkv, got D={d}, Hq={hq}, Hkv={hkv}")
+    if not all(t.is_contiguous() and t.data_ptr() % 16 == 0
+               for t in (q, k, v)):
+        raise ValueError("flash_attention_fwd takes contiguous, 16-byte "
+                         "aligned q, k, v")
+    if scale is None:
+        scale = d ** -0.5
+    win = _check_window(window, sk, KERNEL_BLOCK)
+    o = torch.empty_like(q)
+    lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+    if o.numel() == 0:
+        return o, lse
+    fn = _fn()
+    with torch.cuda.device(q.device):
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                 lse.data_ptr(), b, hq, hkv, sq, d, win, int(bool(causal)),
+                 float(softcap), float(scale), DTYPE_CODES[q.dtype],
+                 torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
+                           f"error {err}")
+    launches += 1
+    return o, lse

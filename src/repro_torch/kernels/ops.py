@@ -1,0 +1,80 @@
+"""Public kernel API (counterpart of ``repro/kernels/ops.py``).
+
+Each op dispatches on the device of its tensors: CPU tensors go to the
+plain PyTorch version, CUDA tensors launch the hand-written kernel, which
+raises on what it does not take.  Nothing routes a CUDA tensor to a
+plain version.  Forward only: serving needs no gradient.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.flash_attention import \
+    flash_attention_fwd as _fa_cuda
+from repro_torch.kernels.flash_attention import \
+    flash_attention_plain as _fa_plain
+from repro_torch.kernels.ref import NEG_INF
+from repro_torch.kernels.rmsnorm import rmsnorm as _rmsnorm_cuda
+from repro_torch.kernels.rmsnorm import rmsnorm_plain as _rmsnorm_plain
+
+
+def _is_cuda(*tensors) -> bool:
+    kinds = {t.device.type for t in tensors}
+    if kinds == {"cuda"}:
+        return True
+    if kinds == {"cpu"}:
+        return False
+    raise ValueError(f"tensors must all be on CUDA or all on the CPU, got "
+                     f"{sorted(kinds)}")
+
+
+def flash_attention(q, k, v, *, window=None, causal=True, softcap=0.0,
+                    scale=None, block=128):
+    """Self-attention.  q: (B,Hq,S,D); k/v: (B,Hkv,S,D) -> o (B,Hq,S,D).
+
+    ``window``: None (full) or an int >= 1.  ``block`` is the key tile of
+    the plain version; the kernel's tiles are fixed.
+    """
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if _is_cuda(q, k, v):
+        o, _ = _fa_cuda(q, k, v, window, causal=causal, softcap=softcap,
+                        scale=scale)
+    else:
+        o, _ = _fa_plain(q, k, v, window, causal=causal, softcap=softcap,
+                         scale=scale, block=block)
+    return o
+
+
+def decode_attention(q, k_cache, v_cache, pos, *, window=None, softcap=0.0,
+                     scale=None):
+    """Single-token decode attention, plain PyTorch on every device.
+
+    q: (B,Hq,1,D); caches: (B,Hkv,Smax,D); pos: int, the number of tokens
+    already in the cache (the new token attends to cache[0..pos]).
+    Window masks cache entries older than ``window``.  The reference has
+    no Pallas kernel here: one pass over the cache is memory-bound.
+    """
+    b, hq, _, d = q.shape
+    hkv, smax = k_cache.shape[1], k_cache.shape[2]
+    if scale is None:
+        scale = d ** -0.5
+    group = hq // hkv
+    qf = q.float().reshape(b, hkv, group, d)
+    s = torch.einsum("bhgd,bhkd->bhgk", qf, k_cache.float()) * scale
+    if softcap:
+        s = softcap * torch.tanh(s / softcap)
+    cols = torch.arange(smax, device=q.device)
+    mask = cols <= pos
+    if window is not None:
+        mask &= cols > pos - window
+    s = torch.where(mask, s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhgk,bhkd->bhgd", p, v_cache.float())
+    return o.reshape(b, hq, 1, d).to(q.dtype)
+
+
+def rmsnorm(x, w, *, eps=1e-6, weight_offset=0.0):
+    if _is_cuda(x, w):
+        return _rmsnorm_cuda(x, w, eps=eps, weight_offset=weight_offset)
+    return _rmsnorm_plain(x, w, eps=eps, weight_offset=weight_offset)

@@ -1,0 +1,63 @@
+"""Unified model API: ``build_model(cfg)`` -> ModelFns (counterpart of
+``repro/models/api.py``; the dense family so far).
+
+  init(seed, ex) -> model (an nn.Module holding the parameters)
+  prefill(model, batch, ex, cache=None) -> (logits, cache)
+  decode_step(model, cache, tokens, pos, ex) -> (logits, cache)
+  init_cache(batch, seq_len, ex) -> cache
+  make_batch(seed, shape, ex) -> synthetic prefill batch
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable
+
+import torch
+
+from repro_torch.configs.base import ModelConfig, ShapeConfig
+from repro_torch.models import transformer
+from repro_torch.models.common import check_device
+
+PORTED_FAMILIES = ("dense",)
+
+
+@dataclass(frozen=True)
+class ModelFns:
+    cfg: ModelConfig
+    init: Callable
+    prefill: Callable
+    decode_step: Callable
+    init_cache: Callable
+    make_batch: Callable
+
+
+def build_model(cfg: ModelConfig) -> ModelFns:
+    if cfg.family not in PORTED_FAMILIES:
+        raise NotImplementedError(
+            f"model family {cfg.family!r} ({cfg.name}) is not ported yet; "
+            f"ported: {PORTED_FAMILIES}")
+
+    def init(seed, ex):
+        return transformer.lm_init(cfg, ex, seed)
+
+    def prefill(model, batch, ex, cache=None):
+        return model.prefill(batch["tokens"], ex, cache)
+
+    def decode_step(model, cache, tokens, pos, ex):
+        return model.decode_step(cache, tokens, pos, ex)
+
+    def init_cache(batch, seq_len, ex):
+        return transformer.init_cache(cfg, batch, seq_len, ex.compute_dtype,
+                                      check_device(ex.device))
+
+    def make_batch(seed, shape: ShapeConfig, ex):
+        # tokens are drawn on the CPU so every device gets the same prompt
+        gen = torch.Generator().manual_seed(seed)
+        tokens = torch.randint(0, cfg.vocab,
+                               (shape.global_batch, shape.seq_len),
+                               generator=gen)
+        return {"tokens": tokens.to(check_device(ex.device))}
+
+    return ModelFns(cfg=cfg, init=init, prefill=prefill,
+                    decode_step=decode_step, init_cache=init_cache,
+                    make_batch=make_batch)

@@ -1,0 +1,80 @@
+"""Attention block: prefill (self-attention) and one-token decode with a KV
+cache (counterpart of ``repro/models/attention.py``)."""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import AttnConfig
+from repro_torch.kernels import ops
+from repro_torch.models import common
+
+
+class Attention(torch.nn.Module):
+    def __init__(self, d_model, a: AttnConfig, *, device=None, dtype=None):
+        super().__init__()
+        kw = {"bias": False, "device": device, "dtype": dtype}
+        self.wq = torch.nn.Linear(d_model, a.n_heads * a.head_dim, **kw)
+        self.wk = torch.nn.Linear(d_model, a.n_kv_heads * a.head_dim, **kw)
+        self.wv = torch.nn.Linear(d_model, a.n_kv_heads * a.head_dim, **kw)
+        self.wo = torch.nn.Linear(a.n_heads * a.head_dim, d_model, **kw)
+        if a.qk_norm:
+            self.q_norm = torch.nn.Parameter(
+                torch.empty(a.head_dim, device=device, dtype=dtype))
+            self.k_norm = torch.nn.Parameter(
+                torch.empty(a.head_dim, device=device, dtype=dtype))
+
+
+def _project_qkv(attn: Attention, x, a: AttnConfig, rope, norm_eps):
+    """x: (B, S, D_model) -> q (B,Hq,S,hd), k, v (B,Hkv,S,hd); rope = (cos,
+    sin) of the S positions."""
+    b, s, _ = x.shape
+    q = attn.wq(x).view(b, s, a.n_heads, a.head_dim)
+    k = attn.wk(x).view(b, s, a.n_kv_heads, a.head_dim)
+    v = attn.wv(x).view(b, s, a.n_kv_heads, a.head_dim)
+    if a.qk_norm:
+        q = common.norm(q, attn.q_norm, norm_eps)
+        k = common.norm(k, attn.k_norm, norm_eps)
+    q, k, v = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    q = common.apply_rope(q, *rope)
+    k = common.apply_rope(k, *rope)
+    return q, k, v
+
+
+def layer_window(a: AttnConfig, is_global: bool):
+    """Window of a layer: None (full) or an int.  Layers are a Python loop
+    here, so every window is static."""
+    if a.window is None or is_global:
+        return None
+    return int(a.window)
+
+
+def attn_train(attn: Attention, x, a: AttnConfig, *, window, norm_eps, rope,
+               ex):
+    """Full-sequence causal self-attention (prefill).
+
+    Returns (out, (k, v)) with k/v in the cache layout (B,Hkv,S,hd).
+    """
+    b, s, _ = x.shape
+    q, k, v = _project_qkv(attn, x, a, rope, norm_eps)
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    o = ops.flash_attention(q, k, v, window=window, causal=True,
+                            softcap=a.attn_softcap, block=ex.attn_block)
+    out = o.transpose(1, 2).reshape(b, s, a.n_heads * a.head_dim)
+    return attn.wo(out), (k, v)
+
+
+def attn_decode(attn: Attention, x, cache_k, cache_v, pos: int,
+                a: AttnConfig, *, window, norm_eps, rope):
+    """One-token decode.  x: (B,1,D_model); caches: (B,Hkv,Smax,hd).
+
+    pos: index of the new token.  The new K/V are written into the caches
+    in place (the reference returns updated copies).
+    """
+    b = x.shape[0]
+    q, k, v = _project_qkv(attn, x, a, rope, norm_eps)
+    cache_k[:, :, pos] = k[:, :, 0]
+    cache_v[:, :, pos] = v[:, :, 0]
+    o = ops.decode_attention(q, cache_k, cache_v, pos, window=window,
+                             softcap=a.attn_softcap)
+    out = o.transpose(1, 2).reshape(b, 1, a.n_heads * a.head_dim)
+    return attn.wo(out)

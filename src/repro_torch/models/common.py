@@ -1,0 +1,89 @@
+"""Shared model-execution config + small building blocks (counterpart of
+``repro/models/common.py``)."""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ops
+
+
+@dataclass(frozen=True)
+class ExecConfig:
+    """Runtime execution knobs (orthogonal to the architecture config)."""
+    param_dtype: torch.dtype = torch.float32
+    compute_dtype: torch.dtype = torch.float32
+    # key tile of the plain attention path (the CUDA kernel's is fixed)
+    attn_block: int = 128
+    device: str = "cuda"
+
+
+def check_device(device) -> torch.device:
+    """The device to run on; a CUDA device that is not there raises."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available; ask for the CPU "
+                           "explicitly (device='cpu' / --device cpu)")
+    return device
+
+
+def dense_init(weight: torch.Tensor, generator: torch.Generator,
+               scale=None) -> None:
+    """Fill an (out, in) weight with normal * in**-0.5, in place."""
+    if scale is None:
+        scale = weight.shape[1] ** -0.5
+    with torch.no_grad():
+        weight.normal_(0.0, scale, generator=generator)
+
+
+# ---------------------------------------------------------------------------
+# RoPE (half-split, as repro.models.common.apply_rope)
+# ---------------------------------------------------------------------------
+def rope_freqs(head_dim: int, theta: float, device=None):
+    return theta ** (-torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                   device=device) / head_dim)
+
+
+def rope_angles(positions: torch.Tensor, head_dim: int, theta: float):
+    """positions: (S,) -> (cos, sin), each (1, 1, S, head_dim/2) fp32.
+
+    Every layer of one forward shares them, so a forward computes them
+    once where the reference recomputes them in each layer (same values).
+    """
+    freqs = rope_freqs(head_dim, theta, positions.device)
+    ang = (positions[:, None].float() * freqs[None, :])[None, None]
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x, cos, sin):
+    """x: (B, H, S, D); cos/sin from ``rope_angles``."""
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Norms / MLP
+# ---------------------------------------------------------------------------
+def norm(x, w, eps):
+    return ops.rmsnorm(x, w, eps=eps)
+
+
+class MLP(torch.nn.Module):
+    def __init__(self, d_model, d_ff, gated: bool, *, device=None,
+                 dtype=None):
+        super().__init__()
+        kw = {"bias": False, "device": device, "dtype": dtype}
+        self.w1 = torch.nn.Linear(d_model, d_ff, **kw)
+        self.w2 = torch.nn.Linear(d_ff, d_model, **kw)
+        self.w3 = torch.nn.Linear(d_model, d_ff, **kw) if gated else None
+
+
+def mlp_apply(mlp: MLP, x, gated: bool):
+    if gated:
+        h = F.silu(mlp.w1(x)) * mlp.w3(x)
+    else:
+        h = F.gelu(mlp.w1(x), approximate="tanh")
+    return mlp.w2(h)

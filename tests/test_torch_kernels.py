@@ -1,0 +1,136 @@
+"""The port's plain kernel versions against the JAX package's Pallas
+kernels, run in interpret mode on the CPU.
+
+Inputs are made with numpy from a seed and handed to both.  Tolerances
+are those of the reference's own kernel sweeps: float32 2e-5 (flash) and
+1e-5 (rmsnorm), where only the order of sums differs; bfloat16 2e-2, one
+rounding of the bf16 output.  The CUDA kernels themselves run only on a
+card (``chip_smoke.py`` holds them against these plain versions there).
+"""
+import jax.numpy as jnp
+import ml_dtypes
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flash_attention import flash_attention_fwd
+from repro.kernels.rmsnorm import rmsnorm as pallas_rmsnorm
+from repro_torch.kernels import flash_attention as port_flash
+from repro_torch.kernels import ops
+from repro_torch.kernels import rmsnorm as port_rmsnorm
+from repro_torch.kernels import ref
+
+SWEEP = [
+    # b, hq, hkv, s, d, window, softcap, causal
+    (1, 2, 2, 128, 32, None, 0.0, True),
+    (2, 4, 2, 128, 16, None, 0.0, True),
+    (1, 8, 1, 256, 32, None, 0.0, True),     # MQA
+    (2, 4, 4, 128, 64, 32, 0.0, True),       # SWA
+    (1, 2, 2, 128, 32, None, 50.0, True),    # softcap (gemma2)
+    (1, 2, 2, 128, 32, 64, 30.0, True),      # SWA + softcap
+    (1, 4, 2, 128, 32, None, 0.0, False),    # encoder (non-causal)
+]
+DTYPES = {"float32": (np.float32, torch.float32, jnp.float32),
+          "bfloat16": (ml_dtypes.bfloat16, torch.bfloat16, jnp.bfloat16)}
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Run PyTorch's CPU ops on one thread: the suite runs in parallel
+    workers, and these small shapes gain nothing from more."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _inputs(shapes, np_dtype, seed=42):
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal(s).astype(np.float32).astype(np_dtype)
+            for s in shapes]
+
+
+def _torch(a, t_dtype):
+    return torch.from_numpy(np.asarray(a, np.float32)).to(t_dtype)
+
+
+def _f32(x):
+    return np.asarray(x.float() if isinstance(x, torch.Tensor) else x,
+                      np.float32)
+
+
+@pytest.mark.parametrize("b,hq,hkv,s,d,win,cap,causal", SWEEP)
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_flash_plain_vs_pallas(b, hq, hkv, s, d, win, cap, causal, dtype):
+    np_dt, t_dt, j_dt = DTYPES[dtype]
+    q, k, v = _inputs([(b, hq, s, d), (b, hkv, s, d), (b, hkv, s, d)], np_dt)
+    o_j, lse_j = flash_attention_fwd(
+        jnp.asarray(q, j_dt), jnp.asarray(k, j_dt), jnp.asarray(v, j_dt),
+        win, causal=causal, softcap=cap, block_q=64, block_k=64,
+        interpret=True)
+    o_t, lse_t = port_flash.flash_attention_plain(
+        _torch(q, t_dt), _torch(k, t_dt), _torch(v, t_dt), win,
+        causal=causal, softcap=cap, block=64)
+    assert o_t.dtype == t_dt and lse_t.dtype == torch.float32
+    tol = 2e-5 if dtype == "float32" else 2e-2
+    np.testing.assert_allclose(_f32(o_t), _f32(np.asarray(o_j, np.float32)),
+                               rtol=tol, atol=tol)
+    np.testing.assert_allclose(_f32(lse_t), np.asarray(lse_j), rtol=tol,
+                               atol=tol)
+
+
+@pytest.mark.parametrize("s,block", [(100, 32), (128, 48), (128, 128)])
+def test_flash_plain_ragged_blocks_vs_dense(s, block):
+    """Any S and key tile: the ragged last tile is masked, not padded."""
+    q, k, v = _inputs([(2, 4, s, 16), (2, 2, s, 16), (2, 2, s, 16)],
+                      np.float32, seed=1)
+    args = [torch.from_numpy(a) for a in (q, k, v)]
+    o, _ = port_flash.flash_attention_plain(*args, 40, causal=True,
+                                            block=block)
+    r = ref.attention_ref(*args, causal=True, window=40)
+    np.testing.assert_allclose(o.numpy(), r.numpy(), rtol=2e-5, atol=2e-5)
+
+
+def test_flash_rejects_cross_attention_and_empty_window():
+    q, k, v = (torch.zeros(1, 2, s, 16) for s in (8, 12, 12))
+    with pytest.raises(ValueError, match="Sq"):
+        ops.flash_attention(q, k, v)
+    with pytest.raises(ValueError, match="window"):
+        ops.flash_attention(q, q, q, window=0)
+
+
+@pytest.mark.parametrize("shape", [(4, 64), (3, 7, 128), (1, 256)])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("offset", [0.0, 1.0])
+def test_rmsnorm_plain_vs_pallas(shape, dtype, offset):
+    np_dt, t_dt, j_dt = DTYPES[dtype]
+    x, w = _inputs([shape, shape[-1:]], np_dt, seed=0)
+    w = (w.astype(np.float32) * 0.1).astype(np_dt)
+    o_j = pallas_rmsnorm(jnp.asarray(x, j_dt), jnp.asarray(w, j_dt),
+                         weight_offset=offset, block_rows=8, interpret=True)
+    o_t = ops.rmsnorm(_torch(x, t_dt), _torch(w, t_dt), eps=1e-6,
+                      weight_offset=offset)
+    assert o_t.dtype == t_dt
+    tol = 1e-5 if dtype == "float32" else 2e-2
+    np.testing.assert_allclose(_f32(o_t), np.asarray(o_j, np.float32),
+                               rtol=tol, atol=tol)
+
+
+def test_cpu_tensors_launch_no_kernel():
+    """On CPU tensors the ops take the plain versions: no launch counted."""
+    before = (port_flash.launches, port_rmsnorm.launches)
+    x = torch.randn(2, 4, 64, 16)
+    ops.flash_attention(x, x[:, :2].contiguous(), x[:, :2].contiguous())
+    ops.rmsnorm(torch.randn(3, 32), torch.ones(32))
+    assert (port_flash.launches, port_rmsnorm.launches) == before == (0, 0)
+
+
+def test_kernel_wrappers_refuse_cpu_tensors():
+    """A wrapper launches only on CUDA tensors; it never falls back."""
+    x = torch.randn(1, 2, 64, 16)
+    with pytest.raises(ValueError, match="CUDA"):
+        port_flash.flash_attention_fwd(x, x, x)
+    with pytest.raises(ValueError, match="CUDA"):
+        port_rmsnorm.rmsnorm(torch.randn(2, 32), torch.ones(32))
+    with pytest.raises(ValueError, match="all be on CUDA or all on the CPU"):
+        ops.rmsnorm(torch.randn(2, 32), torch.ones(32, device="meta"))
