@@ -5,19 +5,25 @@
 
 Phases, in order; any failure raises and exits non-zero:
 
-1. build  - compile every CUDA kernel of the serving path from
+1. build  - compile every CUDA kernel of the serving paths from
    ``src/repro_torch/csrc`` (one nvcc per source, all in parallel);
 2. kernels - hold each kernel against its plain PyTorch version on the
-   card at the serving path's shapes, and time the kernel, the plain
+   card at the serving paths' shapes, and time the kernel, the plain
    version and the one PyTorch call that computes the same function;
-3. serve  - TinyLlama-1.1B at full width (22 layers, bf16, seeded random
-   weights): ``repro_torch.launch.serve.generate`` with batch 8, a
-   1024-token prompt and 64 new tokens, counting kernel launches; then
-   one prefill and 8 decode steps under torch.profiler (device time by
-   kernel, device idle share);
-4. check  - the same port at full width and 2 layers in float32, on the
-   card and on the CPU (plain versions) from the same weights: prefill
-   logits and the first 8 greedy tokens must agree.
+3. two serving paths, each with seeded random weights at full width, bf16:
+   TinyLlama-1.1B (22 layers; flash + rmsnorm) and Zamba2-7B (81 Mamba2
+   layers + 13 applications of the shared attention block; ssd_scan +
+   flash at head_dim 112 + rmsnorm).  For each:
+   serve   - ``repro_torch.launch.serve.generate`` with batch 8, a
+             1024-token prompt and 64 new tokens, counting kernel launches
+             (every count set to 0 just before, read just after);
+   profile - one prefill and 8 decode steps under torch.profiler (device
+             time by kernel, device idle share);
+   check   - the same port at full width and cut depth (TinyLlama 2
+             layers, Zamba2 7 = one period + one leftover layer) in
+             float32, on the card and on the CPU (plain versions) from the
+             same weights: prefill logits and the first 8 greedy tokens
+             must agree.
 
 The last lines are the card's name and power limit (nvidia-smi), one JSON
 line ``{"kernels": [...]}`` and ``{"ok": true, "device": {...}}``.
@@ -43,7 +49,7 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 PEAK_BYTES_PER_S = 3.35e12
 
 SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 8, 1024, 64
-CHECK_LAYERS, CHECK_BATCH, CHECK_PROMPT, CHECK_TOKENS = 2, 2, 200, 8
+CHECK_BATCH, CHECK_TOKENS = 2, 8
 SEED = 0
 
 
@@ -96,9 +102,10 @@ def card_line() -> str:
 def phase_build():
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
-    _build.build_all(["rmsnorm", "flash_attention"])
-    log("build", f"2 sources in {time.perf_counter() - t0:.2f}s into "
-        f"{_build.BUILD_DIR}")
+    sources = ["rmsnorm", "flash_attention", "ssd_scan"]
+    _build.build_all(sources)
+    log("build", f"{len(sources)} sources in {time.perf_counter() - t0:.2f}s "
+        f"into {_build.BUILD_DIR}")
     for name, rec in _build.BUILD_LOG.items():
         for line in rec["log"].splitlines():
             if "registers" in line or "spill" in line:
@@ -127,7 +134,15 @@ FLASH_CASES = [
     ("d32", 1, 8, 2, 130, 32, None, 30.0, False, torch.float32),
     # head_dim 16: the reduced configs (``--reduced``) on the card
     ("d16", 2, 4, 2, 77, 16, 16, 0.0, True, torch.bfloat16),
+    # head_dim 112: Zamba2-7B's shared block, at its prefill shape
+    ("d112_zamba2", 8, 32, 32, 1024, 112, None, 0.0, True, torch.bfloat16),
+    ("d112_fp32_ragged", 1, 4, 4, 200, 112, None, 0.0, True, torch.float32),
+    # head_dim 256: gemma2-2b, window 256 (masks at S=1024), softcap 50
+    ("d256_gemma2", 2, 8, 4, 1024, 256, 256, 50.0, True, torch.bfloat16),
+    ("d256_fp32", 1, 2, 1, 130, 256, None, 0.0, False, torch.float32),
 ]
+# cases timed as well as checked; "main" is TinyLlama's prefill shape
+FLASH_TIMED = ("main", "d112_zamba2", "d256_gemma2")
 # tolerances: bf16 outputs differ by one bf16 rounding (2e-2 as in the
 # reference's kernel sweeps); fp32 by the order of sums and exp2/log.
 FLASH_TOL = {torch.bfloat16: (2e-2, 1e-3), torch.float32: (1e-4, 1e-4)}
@@ -135,7 +150,7 @@ FLASH_TOL = {torch.bfloat16: (2e-2, 1e-3), torch.float32: (1e-4, 1e-4)}
 
 def phase_flash(gen):
     from repro_torch.kernels import flash_attention as fa
-    record = None
+    timed = {}
     for name, b, hq, hkv, s, d, win, cap, causal, dt in FLASH_CASES:
         q = torch.randn(b, hq, s, d, device="cuda", generator=gen).to(dt)
         k = torch.randn(b, hkv, s, d, device="cuda", generator=gen).to(dt)
@@ -155,7 +170,7 @@ def phase_flash(gen):
         check(err <= o_tol and lse_err <= lse_tol,
               f"flash {name}: kernel vs plain {err} (tol {o_tol}), lse "
               f"{lse_err} (tol {lse_tol})")
-        if name == "main":
+        if name in FLASH_TIMED:
             flops = 4.0 * d * _attn_live_pairs(s, win, causal) * b * hq
             nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size() \
                 + lse.numel() * 4
@@ -164,12 +179,14 @@ def phase_flash(gen):
                                                                **kw), 20)
             rec["plain_ms"] = time_ms(
                 lambda: fa.flash_attention_plain(q, k, v, win, **kw), 5)
-            rec["library_ms"] = time_ms(
+            # no single PyTorch call takes a window or a softcap
+            rec["library_ms"] = (time_ms(
                 lambda: F.scaled_dot_product_attention(
                     q, k, v, is_causal=causal, enable_gqa=True), 20)
-            record = rec
+                if win is None and not cap else None)
+            timed[name] = rec
         log("kernel", {"name": "flash_attention_fwd", **rec})
-    return record
+    return {**timed["main"], "shapes": [timed[n] for n in FLASH_TIMED[1:]]}
 
 
 RMSNORM_CASES = [
@@ -213,19 +230,104 @@ def phase_rmsnorm(gen):
     return record
 
 
+SSD_CASES = [
+    # name, bb, s, h, p, g, n, chunk, dtype
+    # Zamba2-7B's prefill shape (batch 8, prompt 1024)
+    ("zamba2", 8, 1024, 112, 64, 1, 64, 128, torch.bfloat16),
+    # Mamba2 widths (mamba2-780m: 48 heads of 64, d_state 128), batch 1
+    ("mamba2_widths", 1, 1024, 48, 64, 1, 128, 128, torch.float32),
+    ("n_groups4", 2, 512, 16, 64, 4, 64, 128, torch.bfloat16),
+    ("chunk64", 2, 512, 16, 64, 1, 64, 64, torch.bfloat16),
+    ("s_eq_chunk", 2, 128, 16, 64, 1, 64, 128, torch.float32),
+    # the reduced configs (``--reduced``, chunk 8) on the card
+    ("reduced", 2, 32, 16, 8, 1, 16, 8, torch.float32),
+]
+SSD_TIMED = ("zamba2", "mamba2_widths")
+# bf16: one bf16 rounding of the output (2^-8 relative); fp32: the cumsum
+# of dt*A runs in another order (a warp scan), and at |L| ~ 1e3 its fp32
+# rounding moves exp(L_i - L_j) by ~1e-4 relative
+SSD_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-3}
+
+
+def _ssd_flops(bb, s, h, p, n, chunk) -> float:
+    """Operations the chunked algorithm needs: C.B^T and the masked
+    product over the (i, j <= i) pairs, the carried-state term (none in
+    the first chunk, whose state is zero) and the state update."""
+    nc = s // chunk
+    pairs = chunk * (chunk + 1) // 2
+    per_chunk = 2.0 * pairs * (n + p) + 2.0 * chunk * n * p
+    return bb * h * (nc * per_chunk + (nc - 1) * 2.0 * chunk * n * p)
+
+
+def phase_ssd(gen):
+    from repro_torch.kernels import ssd_scan as sk
+    timed = {}
+    for name, bb, s, h, p, g, n, chunk, dt in SSD_CASES:
+        x = torch.randn(bb, s, h, p, device="cuda", generator=gen).to(dt)
+        dtv = F.softplus(torch.randn(bb, s, h, device="cuda", generator=gen))
+        a = -torch.exp(0.5 * torch.randn(h, device="cuda", generator=gen))
+        bm = (0.3 * torch.randn(bb, s, g, n, device="cuda",
+                                generator=gen)).to(dt)
+        cm = (0.3 * torch.randn(bb, s, g, n, device="cuda",
+                                generator=gen)).to(dt)
+        y = sk.ssd_scan(x, dtv, a, bm, cm, chunk=chunk)
+        y_p = sk.ssd_plain(x, dtv, a, bm, cm, chunk=chunk)
+        torch.cuda.synchronize()
+        err = (y.float() - y_p.float()).abs().max().item()
+        tol = SSD_TOL[dt]
+        check(bool(torch.isfinite(y.float()).all()), f"ssd {name}: finite")
+        check(torch.allclose(y.float(), y_p.float(), rtol=tol, atol=tol),
+              f"ssd {name}: kernel vs plain {err} (rtol=atol={tol})")
+        rec = {"case": name, "shape": [bb, s, h, p, g, n], "chunk": chunk,
+               "dtype": str(dt), "max_abs_err": err, "tol": tol,
+               "max_abs_y": y_p.float().abs().max().item()}
+        if name in SSD_TIMED:
+            es = x.element_size()
+            nbytes = (2 * x.numel() + bm.numel() + cm.numel()) * es \
+                + (dtv.numel() + a.numel()) * 4
+            rec["bound_ms"], rec["bound_by"] = bound_ms(
+                _ssd_flops(bb, s, h, p, n, chunk), nbytes, dt)
+            rec["ms"] = time_ms(lambda: sk.ssd_scan(x, dtv, a, bm, cm,
+                                                    chunk=chunk), 10)
+            rec["plain_ms"] = time_ms(lambda: sk.ssd_plain(x, dtv, a, bm, cm,
+                                                           chunk=chunk), 3)
+            rec["library_ms"] = None   # no single PyTorch call computes SSD
+            rec["blocks"] = bb * h
+            timed[name] = rec
+        log("kernel", {"name": "ssd_scan", **rec})
+    return {**timed["zamba2"], "shapes": [timed[n] for n in SSD_TIMED[1:]]}
+
+
 # ---------------------------------------------------------------------------
 # 3. serve at full width
 # ---------------------------------------------------------------------------
-def phase_serve():
-    from repro_torch.configs import get_config
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import rmsnorm as rn
-    from repro_torch.launch.serve import generate
-    from repro_torch.models import ExecConfig, build_model
+def _kernel_modules():
+    from repro_torch.kernels import flash_attention, rmsnorm, ssd_scan
+    return {"flash_attention_fwd": flash_attention, "rmsnorm": rmsnorm,
+            "ssd_scan": ssd_scan}
 
-    cfg = get_config("tinyllama-1.1b")
-    ex = ExecConfig(param_dtype=torch.bfloat16, compute_dtype=torch.bfloat16,
-                    device="cuda")
+
+def expected_launches(cfg) -> dict:
+    """Kernel launches of one ``generate`` call of SERVE_GEN tokens: the
+    kernels of prefill once, rmsnorm in prefill and every decode step."""
+    if cfg.family == "hybrid":
+        n_apps = cfg.n_layers // cfg.hybrid_period
+        # per SSM layer: its norm + the gate norm; per application of the
+        # shared block: two norms; one final norm
+        n_norms = 2 * cfg.n_layers + 2 * n_apps + 1
+        return {"flash_attention_fwd": n_apps, "rmsnorm": n_norms * SERVE_GEN,
+                "ssd_scan": cfg.n_layers}
+    return {"flash_attention_fwd": cfg.n_layers,
+            "rmsnorm": (2 * cfg.n_layers + 1) * SERVE_GEN, "ssd_scan": 0}
+
+
+def phase_serve(arch: str):
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import exec_config, generate
+    from repro_torch.models import build_model
+
+    cfg = get_config(arch)
+    ex = exec_config(cfg, torch.bfloat16, "cuda")
     model = build_model(cfg).init(SEED, ex)
     n_params = sum(p.numel() for p in model.parameters())
     log("serve", f"{cfg.name}: {cfg.n_layers} layers, d_model "
@@ -233,22 +335,22 @@ def phase_serve():
     # first call: cuBLAS and allocator warm-up, not counted
     generate(cfg, ex, SERVE_PROMPT, 4, SERVE_BATCH, SEED, model=model)
 
+    mods = _kernel_modules()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    fa.launches = 0
-    rn.launches = 0
+    for m in mods.values():
+        m.launches = 0
     g = generate(cfg, ex, SERVE_PROMPT, SERVE_GEN, SERVE_BATCH, SEED,
                  model=model)
-    launches = {"flash_attention_fwd": fa.launches, "rmsnorm": rn.launches}
+    launches = {name: m.launches for name, m in mods.items()}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
-    n_norms = 2 * cfg.n_layers + 1
-    log("serve", f"main-path launches {launches}; expected flash "
-        f"{cfg.n_layers}, rmsnorm {n_norms} x {SERVE_GEN}")
-    check(launches["flash_attention_fwd"] == cfg.n_layers,
-          "one flash launch per layer in prefill")
-    check(launches["rmsnorm"] == n_norms * SERVE_GEN,
-          "2 per layer + final norm, in prefill and every decode step")
+    expected = expected_launches(cfg)
+    log("serve", f"{cfg.name} main-path launches {launches}; expected "
+        f"{expected}")
+    check(launches == expected,
+          f"{cfg.name}: every kernel of the path launched as often as the "
+          f"model calls it")
     check(tuple(g.tokens.shape) == (SERVE_BATCH, SERVE_GEN), "token shape")
     check(int(g.tokens.min()) >= 0 and int(g.tokens.max()) < cfg.vocab,
           "tokens in range")
@@ -257,14 +359,15 @@ def phase_serve():
           "finite prefill logits")
     n_decode = SERVE_GEN - 1
     total_s = g.prefill_s + g.decode_s
-    log("serve", {"batch": SERVE_BATCH, "prompt": SERVE_PROMPT,
+    log("serve", {"model": cfg.name, "batch": SERVE_BATCH,
+                  "prompt": SERVE_PROMPT,
                   "gen": SERVE_GEN, "prefill_ms": g.prefill_s * 1e3,
                   "decode_ms_per_step": g.decode_s * 1e3 / n_decode,
                   "prompt_tokens_per_s": SERVE_BATCH * SERVE_PROMPT
                   / g.prefill_s,
                   "decode_tokens_per_s": SERVE_BATCH * n_decode / g.decode_s,
                   "generated_tokens_per_s": SERVE_BATCH * SERVE_GEN / total_s,
-                  "peak_mem_gb": peak_gb})
+                  "peak_mem_gb": peak_gb, "params_b": n_params / 1e9})
     return launches, (cfg, ex, model)
 
 
@@ -317,7 +420,8 @@ def phase_profile(cfg, ex, model):
         busy_ms = sum(k[1] for k in by_key)
         check(busy_ms > 0, f"profile {name}: the trace holds device time")
         log("profile", {
-            "window": name, "calls": n_calls, "wall_ms": wall_ms,
+            "model": cfg.name, "window": name, "calls": n_calls,
+            "wall_ms": wall_ms,
             "device_busy_ms": busy_ms,
             "device_idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
             "top_kernels": [{"name": k[:90], "ms": ms, "launches": c,
@@ -331,31 +435,54 @@ def phase_profile(cfg, ex, model):
 CHECK_LOGIT_TOL = 1e-3   # fp32 both sides; sums run in another order
 
 
-def phase_check():
+def phase_check(arch: str, n_layers: int, prompt: int):
     from repro_torch.configs import get_config
-    from repro_torch.launch.serve import generate
-    from repro_torch.models import ExecConfig, build_model
+    from repro_torch.launch.serve import exec_config, generate
+    from repro_torch.models import build_model
 
-    cfg = dataclasses.replace(get_config("tinyllama-1.1b"),
-                              n_layers=CHECK_LAYERS)
-    ex_cpu = ExecConfig(device="cpu")
-    ex_gpu = ExecConfig(device="cuda")
+    cfg = dataclasses.replace(get_config(arch), n_layers=n_layers)
+    ex_cpu = exec_config(cfg, torch.float32, "cpu")
+    ex_gpu = exec_config(cfg, torch.float32, "cuda")
     model_cpu = build_model(cfg).init(SEED, ex_cpu)
     model_gpu = copy.deepcopy(model_cpu).to("cuda")
     runs = {}
     for name, ex, model in (("cuda", ex_gpu, model_gpu),
                             ("cpu", ex_cpu, model_cpu)):
-        runs[name] = generate(cfg, ex, CHECK_PROMPT, CHECK_TOKENS,
-                              CHECK_BATCH, SEED, model=model)
+        runs[name] = generate(cfg, ex, prompt, CHECK_TOKENS, CHECK_BATCH,
+                              SEED, model=model)
     err = (runs["cuda"].prefill_logits.cpu()
            - runs["cpu"].prefill_logits).abs().max().item()
     same = torch.equal(runs["cuda"].tokens.cpu(), runs["cpu"].tokens)
-    log("check", f"full width, {CHECK_LAYERS} layers, fp32, batch "
-        f"{CHECK_BATCH}, prompt {CHECK_PROMPT}: max prefill logit err "
+    log("check", f"{cfg.name} full width, {n_layers} layers, fp32, batch "
+        f"{CHECK_BATCH}, prompt {prompt}: max prefill logit err "
         f"{err:.3e} (tol {CHECK_LOGIT_TOL}), first {CHECK_TOKENS} greedy "
         f"tokens equal: {same}")
     check(err <= CHECK_LOGIT_TOL, "card logits match the CPU run")
     check(same, "card greedy tokens match the CPU run")
+
+
+# the serving paths: arch, depth of the card-vs-CPU check, its prompt
+PATHS = (
+    ("tinyllama-1.1b", 2, 200),
+    # one period of 6 SSM layers + the shared block, then one leftover
+    # layer; the prompt is a multiple of the SSD chunk (128)
+    ("zamba2-7b", 7, 256),
+)
+SOURCES = {
+    # kernel: (source, the TPU kernel it replaces)
+    "flash_attention_fwd": ("src/repro_torch/csrc/flash_attention.cu",
+                            "src/repro/kernels/flash_attention.py:90"),
+    "rmsnorm": ("src/repro_torch/csrc/rmsnorm.cu",
+                "src/repro/kernels/rmsnorm.py:26"),
+    "ssd_scan": ("src/repro_torch/csrc/ssd_scan.cu",
+                 "src/repro/kernels/ssd_scan.py:69"),
+}
+
+
+def phase_kernels():
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    return {"flash_attention_fwd": phase_flash(gen),
+            "rmsnorm": phase_rmsnorm(gen), "ssd_scan": phase_ssd(gen)}
 
 
 def main() -> int:
@@ -369,27 +496,33 @@ def main() -> int:
         f"python {sys.version.split()[0]} devices "
         f"{torch.cuda.device_count()}")
     phase_build()
-    gen = torch.Generator(device="cuda").manual_seed(SEED)
-    records = {"flash_attention_fwd": phase_flash(gen),
-               "rmsnorm": phase_rmsnorm(gen)}
-    launches, served = phase_serve()
-    phase_profile(*served)
-    phase_check()
+    records = phase_kernels()
+    by_path = {}
+    for arch, depth, prompt in PATHS:
+        launches, served = phase_serve(arch)
+        phase_profile(*served)
+        del served   # the served model
+        torch.cuda.empty_cache()
+        phase_check(arch, depth, prompt)
+        by_path[arch] = launches
 
-    meta = {"flash_attention_fwd": ("src/repro_torch/csrc/flash_attention.cu",
-                                    "src/repro/kernels/flash_attention.py:90"),
-            "rmsnorm": ("src/repro_torch/csrc/rmsnorm.cu",
-                        "src/repro/kernels/rmsnorm.py:26")}
     kernels = []
     for name, rec in records.items():
-        source, replaces = meta[name]
-        kernels.append({"name": name, "route": "cuda", "source": source,
-                        "replaces": replaces, "launches": launches[name],
-                        "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
-                        "plain_ms": rec["plain_ms"],
-                        "bound_ms": rec["bound_ms"],
-                        "bound_by": rec["bound_by"],
-                        "library_ms": rec["library_ms"]})
+        source, replaces = SOURCES[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces,
+            "launches": sum(n[name] for n in by_path.values()),
+            "launches_by_path": {a: n[name] for a, n in by_path.items()},
+            "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
+            "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+            "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
+            "shape": rec["shape"], "dtype": rec["dtype"],
+            "other_shapes": [
+                {k: r[k] for k in ("case", "shape", "dtype", "ms", "plain_ms",
+                                   "bound_ms", "bound_by", "library_ms",
+                                   "max_abs_err")}
+                for r in rec.get("shapes", [])]})
     print(card_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

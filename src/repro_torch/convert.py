@@ -1,10 +1,11 @@
 """Parameters of the reference package -> the port's module state.
 
-``params_from_jax(tree, cfg)`` takes the reference's dense-LM parameter
-pytree as numpy arrays (layers stacked on axis 0, linear weights laid out
-(in, out)) and returns a state dict for
-``repro_torch.models.transformer.Transformer``, whose linear weights are
-(out, in): each is transposed here.
+``params_from_jax(tree, cfg)`` takes the reference's parameter pytree as
+numpy arrays (layers stacked on axis 0, linear weights laid out (in, out))
+and returns a state dict for the port's model of ``cfg.family``
+(``transformer.Transformer`` or ``hybrid.Hybrid``), whose linear weights
+are (out, in): each is transposed here.  The SSM's ``conv_w`` keeps its
+(W, C) layout.
 """
 from __future__ import annotations
 
@@ -18,22 +19,45 @@ def _t(a) -> torch.Tensor:
     return torch.tensor(np.asarray(a))   # a copy: jax's arrays are read-only
 
 
+def _linear(a) -> torch.Tensor:
+    return _t(np.asarray(a).T)
+
+
+def _block(blk: dict, idx, pre: str, cfg: ModelConfig) -> dict:
+    """One attention + MLP block; ``idx`` picks a layer of a stacked tree
+    (``()`` takes the arrays as they are)."""
+    attn, mlp = blk["attn"], blk["mlp"]
+    sd = {pre + "ln1": _t(blk["ln1"][idx]), pre + "ln2": _t(blk["ln2"][idx])}
+    for name in ("wq", "wk", "wv", "wo"):
+        sd[pre + f"attn.{name}.weight"] = _linear(attn[name][idx])
+    if cfg.attn.qk_norm:
+        sd[pre + "attn.q_norm"] = _t(attn["q_norm"][idx])
+        sd[pre + "attn.k_norm"] = _t(attn["k_norm"][idx])
+    for name in ("w1", "w2", "w3"):
+        if name in mlp:
+            sd[pre + f"mlp.{name}.weight"] = _linear(mlp[name][idx])
+    return sd
+
+
+def _ssm(p: dict, i: int, pre: str) -> dict:
+    sd = {pre + "in_proj.weight": _linear(p["in_proj"][i]),
+          pre + "out_proj.weight": _linear(p["out_proj"][i])}
+    for name in ("conv_w", "conv_b", "A_log", "D", "dt_bias", "gate_norm"):
+        sd[pre + name] = _t(p[name][i])
+    return sd
+
+
 def params_from_jax(tree: dict, cfg: ModelConfig) -> dict:
     layers = tree["layers"]
-    attn, mlp = layers["attn"], layers["mlp"]
     sd = {"embed": _t(tree["embed"]), "final_norm": _t(tree["final_norm"])}
+    if cfg.family == "hybrid":
+        for i in range(cfg.n_layers):
+            sd[f"layers.{i}.ln"] = _t(layers["ln"][i])
+            sd.update(_ssm(layers["ssm"], i, f"layers.{i}.ssm."))
+        sd.update(_block(tree["shared"], (), "shared.", cfg))
+        return sd
     for i in range(cfg.n_layers):
-        pre = f"layers.{i}."
-        sd[pre + "ln1"] = _t(layers["ln1"][i])
-        sd[pre + "ln2"] = _t(layers["ln2"][i])
-        for name in ("wq", "wk", "wv", "wo"):
-            sd[pre + f"attn.{name}.weight"] = _t(np.asarray(attn[name][i]).T)
-        if cfg.attn.qk_norm:
-            sd[pre + "attn.q_norm"] = _t(attn["q_norm"][i])
-            sd[pre + "attn.k_norm"] = _t(attn["k_norm"][i])
-        for name in ("w1", "w2", "w3"):
-            if name in mlp:
-                sd[pre + f"mlp.{name}.weight"] = _t(np.asarray(mlp[name][i]).T)
+        sd.update(_block(layers, i, f"layers.{i}.", cfg))
     if not cfg.tie_embeddings:
-        sd["lm_head.weight"] = _t(np.asarray(tree["lm_head"]).T)
+        sd["lm_head.weight"] = _linear(tree["lm_head"])
     return sd

@@ -26,6 +26,12 @@
 // Masking matches the Pallas kernel: masked scores are NEG_INF = -1e30,
 // and a row whose sum stays 0 gives o = 0 and lse = m + log 1 = NEG_INF.
 // Rows and keys past S (the ragged edge) are masked, so any S works.
+//
+// Any head_dim d <= 256 that is a multiple of 8 works: the template is
+// instantiated at a padded width D in {16, 32, 64, 128, 256}, d is passed
+// at run time, loads past d fill zeros (which add nothing to q.k and give
+// zero output columns) and stores stop at d.  At D = 256 the tiles take
+// 222,208 B of shared memory, under the 232,448 B a block may opt into.
 #include "common.cuh"
 
 namespace {
@@ -44,7 +50,7 @@ struct Args {
   const void* v;
   void* o;
   float* lse;
-  int hq, hkv, s, window, causal;
+  int hq, hkv, s, d, window, causal;
   float softcap, scale;
 };
 
@@ -54,20 +60,22 @@ constexpr size_t smem_bytes() {
   return sizeof(float) * (2 * D * kLd + kBK * D + kBK * kLd);
 }
 
-// Rows [r0, r0 + 64) of a row-major (S, D) matrix into dst[d * kLd + r]
-// (transposed), zero past S.  Consecutive threads take consecutive rows,
-// so the transposed shared-memory stores do not conflict.
+// Rows [r0, r0 + 64) of a row-major (S, d) matrix into dst[c * kLd + r]
+// (transposed) for columns c < D, zero past S and past d.  Consecutive
+// threads take consecutive rows, so the transposed shared-memory stores do
+// not conflict.
 template <typename T, int D>
 __device__ __forceinline__ void load_transposed(const T* __restrict__ src,
-                                                int r0, int s, float* dst) {
+                                                int r0, int s, int d,
+                                                float* dst) {
   constexpr int N = repro::kVec<T>;
   constexpr int kChunks = D / N;
   for (int idx = threadIdx.x; idx < 64 * kChunks; idx += kThreads) {
     const int r = idx % 64, ch = idx / 64;
     float f[N];
-    if (r0 + r < s) {
+    if (r0 + r < s && ch * N < d) {
       repro::unpack<T>(*reinterpret_cast<const uint4*>(
-                           src + static_cast<size_t>(r0 + r) * D + ch * N),
+                           src + static_cast<size_t>(r0 + r) * d + ch * N),
                        f);
     } else {
 #pragma unroll
@@ -78,19 +86,20 @@ __device__ __forceinline__ void load_transposed(const T* __restrict__ src,
   }
 }
 
-// Rows [r0, r0 + 64) of a row-major (S, D) matrix into dst[r * D + d],
-// zero past S.  Consecutive threads take consecutive 16-byte chunks.
+// Rows [r0, r0 + 64) of a row-major (S, d) matrix into dst[r * D + c]
+// for columns c < D, zero past S and past d.  Consecutive threads take
+// consecutive 16-byte chunks.
 template <typename T, int D>
 __device__ __forceinline__ void load_rows(const T* __restrict__ src, int r0,
-                                          int s, float* dst) {
+                                          int s, int d, float* dst) {
   constexpr int N = repro::kVec<T>;
   constexpr int kChunks = D / N;
   for (int idx = threadIdx.x; idx < 64 * kChunks; idx += kThreads) {
     const int r = idx / kChunks, ch = idx % kChunks;
     float f[N];
-    if (r0 + r < s) {
+    if (r0 + r < s && ch * N < d) {
       repro::unpack<T>(*reinterpret_cast<const uint4*>(
-                           src + static_cast<size_t>(r0 + r) * D + ch * N),
+                           src + static_cast<size_t>(r0 + r) * d + ch * N),
                        f);
     } else {
 #pragma unroll
@@ -133,7 +142,7 @@ fa_fwd_kernel(Args a) {
   const int tid = threadIdx.x;
   const int tx = tid % 8;   // column lane: 8 lanes of a warp share 4 rows
   const int ty = tid / 8;   // row group: rows ty*4 .. ty*4+3 of the tile
-  const int s = a.s;
+  const int s = a.s, d = a.d;
   const int n_qt = (s + kBQ - 1) / kBQ;
   const int qt = n_qt - 1 - static_cast<int>(blockIdx.x);
   const int h = blockIdx.y, b = blockIdx.z;
@@ -141,15 +150,15 @@ fa_fwd_kernel(Args a) {
   const int q0 = qt * kBQ;
 
   const T* Q = static_cast<const T*>(a.q) +
-               static_cast<size_t>(b * a.hq + h) * s * D;
+               static_cast<size_t>(b * a.hq + h) * s * d;
   const T* K = static_cast<const T*>(a.k) +
-               static_cast<size_t>(b * a.hkv + hk) * s * D;
+               static_cast<size_t>(b * a.hkv + hk) * s * d;
   const T* V = static_cast<const T*>(a.v) +
-               static_cast<size_t>(b * a.hkv + hk) * s * D;
-  T* O = static_cast<T*>(a.o) + static_cast<size_t>(b * a.hq + h) * s * D;
+               static_cast<size_t>(b * a.hkv + hk) * s * d;
+  T* O = static_cast<T*>(a.o) + static_cast<size_t>(b * a.hq + h) * s * d;
   float* L = a.lse + static_cast<size_t>(b * a.hq + h) * s;
 
-  load_transposed<T, D>(Q, q0, s, Qs);
+  load_transposed<T, D>(Q, q0, s, d, Qs);
 
   // Live key tiles: keys c with row - c < window for some row >= q0,
   // and (causal) c <= the tile's last row.  window >= 1 (wrapper).
@@ -170,8 +179,8 @@ fa_fwd_kernel(Args a) {
   for (int kt = kt_begin; kt <= kt_end; ++kt) {
     const int k0 = kt * kBK;
     __syncthreads();  // the previous tile is no longer read
-    load_transposed<T, D>(K, k0, s, Ks);
-    load_rows<T, D>(V, k0, s, Vs);
+    load_transposed<T, D>(K, k0, s, d, Ks);
+    load_rows<T, D>(V, k0, s, d, Vs);
     __syncthreads();
 
     // scores: 4 rows x 8 keys per thread
@@ -181,11 +190,11 @@ fa_fwd_kernel(Args a) {
 #pragma unroll
       for (int j = 0; j < 8; ++j) sc[i][j] = 0.f;
 #pragma unroll 16
-    for (int d = 0; d < D; ++d) {
-      const float4 qv = *reinterpret_cast<const float4*>(&Qs[d * kLd + ty * 4]);
-      const float4 ka = *reinterpret_cast<const float4*>(&Ks[d * kLd + tx * 4]);
+    for (int c = 0; c < D; ++c) {
+      const float4 qv = *reinterpret_cast<const float4*>(&Qs[c * kLd + ty * 4]);
+      const float4 ka = *reinterpret_cast<const float4*>(&Ks[c * kLd + tx * 4]);
       const float4 kb =
-          *reinterpret_cast<const float4*>(&Ks[d * kLd + 32 + tx * 4]);
+          *reinterpret_cast<const float4*>(&Ks[c * kLd + 32 + tx * 4]);
       const float qr[4] = {qv.x, qv.y, qv.z, qv.w};
       const float kr[8] = {ka.x, ka.y, ka.z, ka.w, kb.x, kb.y, kb.z, kb.w};
 #pragma unroll
@@ -239,26 +248,28 @@ fa_fwd_kernel(Args a) {
     for (int c = 0; c < kBK; ++c) {
       const float4 pv = *reinterpret_cast<const float4*>(&Pt[c * kLd + ty * 4]);
       const float pr[4] = {pv.x, pv.y, pv.z, pv.w};
-      float vr[kDc];
       if constexpr (kDc >= 4) {
+        // one float4 of V at a time: at D = 256 no row of V is held in
+        // registers beside the 4 x 32 accumulators
 #pragma unroll
         for (int g = 0; g < kDc / 4; ++g) {
           const float4 vv =
               *reinterpret_cast<const float4*>(&Vs[c * D + 32 * g + tx * 4]);
-          vr[4 * g] = vv.x;
-          vr[4 * g + 1] = vv.y;
-          vr[4 * g + 2] = vv.z;
-          vr[4 * g + 3] = vv.w;
+          const float vr[4] = {vv.x, vv.y, vv.z, vv.w};
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+              acc[i][4 * g + j] = fmaf(pr[i], vr[j], acc[i][4 * g + j]);
         }
       } else {
         const float2 vv = *reinterpret_cast<const float2*>(&Vs[c * D + tx * 2]);
-        vr[0] = vv.x;
-        vr[1] = vv.y;
+        const float vr[2] = {vv.x, vv.y};
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 2; ++j) acc[i][j] = fmaf(pr[i], vr[j], acc[i][j]);
       }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < kDc; ++j) acc[i][j] = fmaf(pr[i], vr[j], acc[i][j]);
     }
   }
 
@@ -273,8 +284,11 @@ fa_fwd_kernel(Args a) {
       const float inv = 1.f / (lt == 0.f ? 1.f : lt);
 #pragma unroll
       for (int j = 0; j < kDc; ++j) {
-        O[static_cast<size_t>(r) * D + out_col<D>(tx, j)] =
-            repro::from_float<T>(acc[i][j] * inv);
+        const int col = out_col<D>(tx, j);
+        if (col < d) {
+          O[static_cast<size_t>(r) * d + col] =
+              repro::from_float<T>(acc[i][j] * inv);
+        }
       }
       if (tx == 0) L[r] = lt == 0.f ? kNegInf : m[i] * kLn2 + logf(lt);
     }
@@ -293,21 +307,24 @@ int launch(const Args& a, int b, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// The smallest instantiated width that holds head_dim d.
 template <typename T>
-int launch_d(const Args& a, int b, int d, cudaStream_t stream) {
-  switch (d) {
-    case 16: return launch<T, 16>(a, b, stream);
-    case 32: return launch<T, 32>(a, b, stream);
-    case 64: return launch<T, 64>(a, b, stream);
-    case 128: return launch<T, 128>(a, b, stream);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+int launch_d(const Args& a, int b, cudaStream_t stream) {
+  if (a.d < 8 || a.d > 256 || a.d % 8) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
+  if (a.d <= 16) return launch<T, 16>(a, b, stream);
+  if (a.d <= 32) return launch<T, 32>(a, b, stream);
+  if (a.d <= 64) return launch<T, 64>(a, b, stream);
+  if (a.d <= 128) return launch<T, 128>(a, b, stream);
+  return launch<T, 256>(a, b, stream);
 }
 
 }  // namespace
 
-// q, o: (B, Hq, S, D); k, v: (B, Hkv, S, D), contiguous, one dtype;
-// lse: (B, Hq, S) fp32.  window >= 1 (pass S + 64 for "no window").
+// q, o: (B, Hq, S, d); k, v: (B, Hkv, S, d), contiguous, one dtype,
+// d <= 256 a multiple of 8; lse: (B, Hq, S) fp32.  window >= 1 (pass
+// S + 64 for "no window").
 // Returns the CUDA error of the launch (0 on success).
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
                                    void* o, float* lse, int b, int hq, int hkv,
@@ -315,9 +332,9 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
                                    float softcap, float scale, int dtype,
                                    void* stream) {
   if (b == 0 || hq == 0 || s == 0) return 0;
-  const Args a{q, k, v, o, lse, hq, hkv, s, window, causal, softcap, scale};
+  const Args a{q, k, v, o, lse, hq, hkv, s, d, window, causal, softcap, scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == repro::kFloat32) return launch_d<float>(a, b, d, st);
-  if (dtype == repro::kBFloat16) return launch_d<__nv_bfloat16>(a, b, d, st);
+  if (dtype == repro::kFloat32) return launch_d<float>(a, b, st);
+  if (dtype == repro::kBFloat16) return launch_d<__nv_bfloat16>(a, b, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

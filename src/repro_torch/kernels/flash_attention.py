@@ -20,11 +20,22 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ref import NEG_INF
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (16, 32, 64, 128)
+MAX_HEAD_DIM = 256
 KERNEL_BLOCK = 64   # the kernel's q and k tile
+# widths the kernel is instantiated at; head_dim d runs at the smallest
+# that holds it, with zeros past d
+KERNEL_HEAD_DIMS = (16, 32, 64, 128, 256)
 
 # Times flash_attention_fwd has launched its kernel in this process.
 launches = 0
+
+
+def kernel_head_dim(d: int) -> int:
+    """The kernel width head_dim ``d`` runs at; raises if it takes none."""
+    if d % 8 or not 8 <= d <= MAX_HEAD_DIM:
+        raise ValueError(f"head_dim must be a multiple of 8 in [8, "
+                         f"{MAX_HEAD_DIM}], got {d}")
+    return next(w for w in KERNEL_HEAD_DIMS if w >= d)
 
 
 def _check_window(window, s, block):
@@ -87,7 +98,8 @@ def _fn():
 def flash_attention_fwd(q, k, v, window=None, *, causal=True, softcap=0.0,
                         scale=None):
     """Launch the kernel.  q, k, v: contiguous float32 or bfloat16 CUDA
-    tensors of one dtype, Sq == Sk, head_dim in HEAD_DIMS, Hq % Hkv == 0."""
+    tensors of one dtype, Sq == Sk, head_dim a multiple of 8 up to 256,
+    Hq % Hkv == 0."""
     global launches
     if not all(t.is_cuda and t.device == q.device for t in (q, k, v)):
         raise ValueError("flash_attention_fwd takes q, k, v on one CUDA "
@@ -103,9 +115,10 @@ def flash_attention_fwd(q, k, v, window=None, *, causal=True, softcap=0.0,
     if k.shape[0] != b or k.shape[3] != d or sq != sk:
         raise ValueError(f"self-attention only: q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}")
-    if d not in HEAD_DIMS or hkv == 0 or hq % hkv:
-        raise ValueError(f"head_dim must be one of {HEAD_DIMS} and Hq a "
-                         f"multiple of Hkv, got D={d}, Hq={hq}, Hkv={hkv}")
+    kernel_head_dim(d)
+    if hkv == 0 or hq % hkv:
+        raise ValueError(f"Hq must be a multiple of Hkv, got Hq={hq}, "
+                         f"Hkv={hkv}")
     if not all(t.is_contiguous() and t.data_ptr() % 16 == 0
                for t in (q, k, v)):
         raise ValueError("flash_attention_fwd takes contiguous, 16-byte "

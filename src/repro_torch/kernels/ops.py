@@ -16,6 +16,8 @@ from repro_torch.kernels.flash_attention import \
 from repro_torch.kernels.ref import NEG_INF
 from repro_torch.kernels.rmsnorm import rmsnorm as _rmsnorm_cuda
 from repro_torch.kernels.rmsnorm import rmsnorm_plain as _rmsnorm_plain
+from repro_torch.kernels.ssd_scan import ssd_plain as _ssd_plain
+from repro_torch.kernels.ssd_scan import ssd_scan as _ssd_cuda
 
 
 def _is_cuda(*tensors) -> bool:
@@ -78,3 +80,16 @@ def rmsnorm(x, w, *, eps=1e-6, weight_offset=0.0):
     if _is_cuda(x, w):
         return _rmsnorm_cuda(x, w, eps=eps, weight_offset=weight_offset)
     return _rmsnorm_plain(x, w, eps=eps, weight_offset=weight_offset)
+
+
+def ssd(x, dt, A, B, C, *, chunk=128):
+    """Mamba2 SSD operator.  x: (Bb,S,H,P); dt: (Bb,S,H); A: (H,); B, C:
+    (Bb,S,G,N) -> y (Bb,S,H,P) in x's dtype.  The caller applies the
+    D-skip.  ``chunk`` is cut to S, and S must be a multiple of it."""
+    s = x.shape[1]
+    chunk = min(int(chunk), s)
+    if chunk < 1 or s % chunk:
+        raise ValueError(f"S={s} is not a multiple of chunk={chunk}")
+    if _is_cuda(x, dt, A, B, C):
+        return _ssd_cuda(x, dt, A, B, C, chunk=chunk)
+    return _ssd_plain(x, dt, A, B, C, chunk=chunk)

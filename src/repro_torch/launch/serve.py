@@ -1,9 +1,9 @@
 """Serving driver: batched prefill + greedy decode loop (counterpart of
 ``repro/launch/serve.py``).
 
-``python -m repro_torch.launch.serve --arch tinyllama-1.1b`` serves on the
-GPU in bfloat16; ``--device cpu`` runs on the CPU in float32 (plain
-PyTorch in place of the kernels).
+``python -m repro_torch.launch.serve --arch tinyllama-1.1b`` (or
+``--arch zamba2-7b``) serves on the GPU in bfloat16; ``--device cpu`` runs
+on the CPU in float32 (plain PyTorch in place of the kernels).
 """
 from __future__ import annotations
 
@@ -71,6 +71,14 @@ def generate(cfg, ex, prompt_len=32, gen_len=32, batch=2, seed=0, *,
                       prefill_s=t1 - t0, decode_s=t2 - t1)
 
 
+def exec_config(cfg, dtype, device) -> ExecConfig:
+    """Serving settings for ``cfg``: params and compute in ``dtype``, and
+    the config's SSD chunk (8 when reduced), as the reference CLI."""
+    return ExecConfig(param_dtype=dtype, compute_dtype=dtype, attn_block=32,
+                      ssd_chunk=cfg.ssm.chunk if cfg.ssm else 128,
+                      device=str(device))
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="tinyllama-1.1b")
@@ -88,8 +96,7 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
-    ex = ExecConfig(param_dtype=dtype, compute_dtype=dtype, attn_block=32,
-                    device=str(device))
+    ex = exec_config(cfg, dtype, device)
     t0 = time.perf_counter()
     gen = generate(cfg, ex, args.prompt_len, args.gen_len, args.batch,
                    args.seed)

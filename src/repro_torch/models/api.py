@@ -1,5 +1,5 @@
 """Unified model API: ``build_model(cfg)`` -> ModelFns (counterpart of
-``repro/models/api.py``; the dense family so far).
+``repro/models/api.py``; the dense and hybrid families so far).
 
   init(seed, ex) -> model (an nn.Module holding the parameters)
   prefill(model, batch, ex, cache=None) -> (logits, cache)
@@ -15,10 +15,15 @@ from typing import Callable
 import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
-from repro_torch.models import transformer
+from repro_torch.models import hybrid, transformer
 from repro_torch.models.common import check_device
 
-PORTED_FAMILIES = ("dense",)
+# family -> (seeded init, cache allocator)
+_FAMILIES = {
+    "dense": (transformer.lm_init, transformer.init_cache),
+    "hybrid": (hybrid.hybrid_init, hybrid.init_cache),
+}
+PORTED_FAMILIES = tuple(_FAMILIES)
 
 
 @dataclass(frozen=True)
@@ -36,9 +41,10 @@ def build_model(cfg: ModelConfig) -> ModelFns:
         raise NotImplementedError(
             f"model family {cfg.family!r} ({cfg.name}) is not ported yet; "
             f"ported: {PORTED_FAMILIES}")
+    family_init, family_cache = _FAMILIES[cfg.family]
 
     def init(seed, ex):
-        return transformer.lm_init(cfg, ex, seed)
+        return family_init(cfg, ex, seed)
 
     def prefill(model, batch, ex, cache=None):
         return model.prefill(batch["tokens"], ex, cache)
@@ -47,8 +53,8 @@ def build_model(cfg: ModelConfig) -> ModelFns:
         return model.decode_step(cache, tokens, pos, ex)
 
     def init_cache(batch, seq_len, ex):
-        return transformer.init_cache(cfg, batch, seq_len, ex.compute_dtype,
-                                      check_device(ex.device))
+        return family_cache(cfg, batch, seq_len, ex.compute_dtype,
+                            check_device(ex.device))
 
     def make_batch(seed, shape: ShapeConfig, ex):
         # tokens are drawn on the CPU so every device gets the same prompt

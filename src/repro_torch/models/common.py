@@ -17,6 +17,8 @@ class ExecConfig:
     compute_dtype: torch.dtype = torch.float32
     # key tile of the plain attention path (the CUDA kernel's is fixed)
     attn_block: int = 128
+    # SSD chunk length (ops.ssd cuts it to the sequence length)
+    ssd_chunk: int = 128
     device: str = "cuda"
 
 

@@ -29,6 +29,8 @@ SWEEP = [
     (1, 2, 2, 128, 32, None, 50.0, True),    # softcap (gemma2)
     (1, 2, 2, 128, 32, 64, 30.0, True),      # SWA + softcap
     (1, 4, 2, 128, 32, None, 0.0, False),    # encoder (non-causal)
+    (1, 2, 2, 128, 112, None, 0.0, True),    # Zamba2's shared block
+    (1, 2, 1, 128, 256, 64, 50.0, True),     # gemma2: SWA + softcap
 ]
 DTYPES = {"float32": (np.float32, torch.float32, jnp.float32),
           "bfloat16": (ml_dtypes.bfloat16, torch.bfloat16, jnp.bfloat16)}
@@ -97,6 +99,21 @@ def test_flash_rejects_cross_attention_and_empty_window():
         ops.flash_attention(q, k, v)
     with pytest.raises(ValueError, match="window"):
         ops.flash_attention(q, q, q, window=0)
+
+
+@pytest.mark.parametrize("d,width", [(8, 16), (16, 16), (64, 64),
+                                     (112, 128), (128, 128), (136, 256),
+                                     (256, 256)])
+def test_flash_kernel_width_holds_head_dim(d, width):
+    """The kernel runs head_dim d at the smallest instantiated width that
+    holds it (zeros past d)."""
+    assert port_flash.kernel_head_dim(d) == width
+
+
+@pytest.mark.parametrize("d", [4, 12, 100, 264])
+def test_flash_kernel_refuses_head_dim(d):
+    with pytest.raises(ValueError, match="multiple of 8"):
+        port_flash.kernel_head_dim(d)
 
 
 @pytest.mark.parametrize("shape", [(4, 64), (3, 7, 128), (1, 256)])

@@ -123,7 +123,22 @@ def test_generate_runs_reduced_on_cpu():
     assert torch.equal(g1.tokens, g2.tokens)
 
 
+def test_generate_runs_zamba2_reduced_on_cpu():
+    """The hybrid family through the serving entry point: SSD prefill with
+    the config's chunk, decode of the SSM state, the same tokens from the
+    same seed."""
+    from repro_torch.launch.serve import generate
+    cfg = torch_get_config("zamba2_7b").reduced()
+    ex = ExecConfig(device="cpu", attn_block=16, ssd_chunk=cfg.ssm.chunk)
+    g1 = generate(cfg, ex, prompt_len=24, gen_len=5, batch=2, seed=1)
+    g2 = generate(cfg, ex, prompt_len=24, gen_len=5, batch=2, seed=1)
+    assert g1.tokens.shape == (2, 5)
+    assert int(g1.tokens.min()) >= 0 and int(g1.tokens.max()) < cfg.vocab
+    assert torch.isfinite(g1.prefill_logits).all()
+    assert torch.equal(g1.tokens, g2.tokens)
+
+
 def test_other_families_raise():
-    for arch in ("mamba2_780m", "mixtral_8x7b", "zamba2_7b"):
+    for arch in ("mamba2_780m", "mixtral_8x7b"):
         with pytest.raises(NotImplementedError, match="family"):
             build_model(torch_get_config(arch))
