@@ -10,27 +10,28 @@ Phases, in order; any failure raises and exits non-zero:
 2. kernels - hold each kernel against its plain PyTorch version on the
    card at the serving paths' shapes, and time the kernel, the plain
    version and the one PyTorch call that computes the same function;
-3. two serving paths, each with seeded random weights at full width, bf16:
-   TinyLlama-1.1B (22 layers; flash + rmsnorm) and Zamba2-7B (81 Mamba2
+3. three serving paths, each with seeded random weights at full width,
+   bf16: TinyLlama-1.1B (22 layers; flash + rmsnorm), Zamba2-7B (81 Mamba2
    layers + 13 applications of the shared attention block; ssd_scan +
-   flash at head_dim 112 + rmsnorm).  For each:
+   flash at head_dim 112 + rmsnorm) and Qwen3-MoE-235B-A22B cut to 8 of
+   its 94 layers, which one 80 GB card holds (128 experts, top-8; moe_gmm
+   + flash at head_dim 128 + rmsnorm with qk-norm).  For each:
    serve   - ``repro_torch.launch.serve.generate`` with batch 8, a
              1024-token prompt and 64 new tokens, counting kernel launches
              (every count set to 0 just before, read just after);
    profile - one prefill and 8 decode steps under torch.profiler (device
              time by kernel, device idle share);
    check   - the same port at full width and cut depth (TinyLlama 2
-             layers, Zamba2 7 = one period + one leftover layer) in
-             float32, on the card and on the CPU (plain versions) from the
-             same weights: prefill logits and the first 8 greedy tokens
-             must agree.
+             layers, Zamba2 7 = one period + one leftover layer, Qwen3-MoE
+             1) in float32, on the card and on the CPU (plain versions)
+             from the same weights: prefill logits and the first 8 greedy
+             tokens must agree.
 
 The last lines are the card's name and power limit (nvidia-smi), one JSON
 line ``{"kernels": [...]}`` and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
-import copy
 import dataclasses
 import json
 import pathlib
@@ -102,7 +103,7 @@ def card_line() -> str:
 def phase_build():
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
-    sources = ["rmsnorm", "flash_attention", "ssd_scan"]
+    sources = ["rmsnorm", "flash_attention", "ssd_scan", "moe_gmm"]
     _build.build_all(sources)
     log("build", f"{len(sources)} sources in {time.perf_counter() - t0:.2f}s "
         f"into {_build.BUILD_DIR}")
@@ -140,9 +141,11 @@ FLASH_CASES = [
     # head_dim 256: gemma2-2b, window 256 (masks at S=1024), softcap 50
     ("d256_gemma2", 2, 8, 4, 1024, 256, 256, 50.0, True, torch.bfloat16),
     ("d256_fp32", 1, 2, 1, 130, 256, None, 0.0, False, torch.float32),
+    # head_dim 128: Qwen3-MoE's prefill shape (64 query heads, 4 kv heads)
+    ("d128_qwen3", 8, 64, 4, 1024, 128, None, 0.0, True, torch.bfloat16),
 ]
 # cases timed as well as checked; "main" is TinyLlama's prefill shape
-FLASH_TIMED = ("main", "d112_zamba2", "d256_gemma2")
+FLASH_TIMED = ("main", "d112_zamba2", "d256_gemma2", "d128_qwen3")
 # tolerances: bf16 outputs differ by one bf16 rounding (2e-2 as in the
 # reference's kernel sweeps); fp32 by the order of sums and exp2/log.
 FLASH_TOL = {torch.bfloat16: (2e-2, 1e-3), torch.float32: (1e-4, 1e-4)}
@@ -195,6 +198,10 @@ RMSNORM_CASES = [
     ("decode", (SERVE_BATCH, 1, 2048), torch.bfloat16, 0.0),
     ("fp32", (SERVE_BATCH * SERVE_PROMPT, 2048), torch.float32, 0.0),
     ("offset_scalar_path", (1000, 2050), torch.bfloat16, 1.0),
+    # Qwen3-MoE's prefill: q_norm over 64 heads of 128, ln1/ln2 at 4096
+    ("qwen3_q_norm", (SERVE_BATCH, SERVE_PROMPT, 64, 128), torch.bfloat16,
+     0.0),
+    ("qwen3_ln", (SERVE_BATCH * SERVE_PROMPT, 4096), torch.bfloat16, 0.0),
 ]
 # one bf16 rounding of the output (2^-7 relative); fp32: order of sums
 RMSNORM_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-5}
@@ -202,7 +209,7 @@ RMSNORM_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-5}
 
 def phase_rmsnorm(gen):
     from repro_torch.kernels import rmsnorm as rn
-    record = None
+    records = {}
     for name, shape, dt, off in RMSNORM_CASES:
         x = torch.randn(shape, device="cuda", generator=gen).to(dt)
         w = (1.0 + 0.1 * torch.randn(shape[-1], device="cuda",
@@ -224,10 +231,10 @@ def phase_rmsnorm(gen):
         rec["plain_ms"] = time_ms(lambda: rn.rmsnorm_plain(x, w, **kw), 20)
         rec["library_ms"] = (time_ms(lambda: F.rms_norm(
             x, (shape[-1],), w, eps=1e-6), 50) if off == 0.0 else None)
-        if name == "prefill":
-            record = rec
+        records[name] = rec
         log("kernel", {"name": "rmsnorm", **rec})
-    return record
+    return {**records["prefill"],
+            "shapes": [r for n, r in records.items() if n != "prefill"]}
 
 
 SSD_CASES = [
@@ -298,40 +305,131 @@ def phase_ssd(gen):
     return {**timed["zamba2"], "shapes": [timed[n] for n in SSD_TIMED[1:]]}
 
 
+GMM_CASES = [
+    # name, experts, rows per expert (or the block ids), K, N, block_t,
+    # dtype, iterations timed.  Qwen3-MoE at batch 8 x prompt 1024: the
+    # capacity is 640 rows of 128 experts; w1 and w3 are 4096 -> 1536, w2
+    # 1536 -> 4096.  Decode at batch 8: 8 rows (one block) per expert.
+    ("qwen3_prefill", 128, 640, 4096, 1536, 128, torch.bfloat16, 10),
+    ("qwen3_prefill_w2", 128, 640, 1536, 4096, 128, torch.bfloat16, 10),
+    ("qwen3_decode", 128, 8, 4096, 1536, 8, torch.bfloat16, 20),
+    # Mixtral-8x7B at batch 8 x prompt 1024: 2560 rows of 8 experts
+    ("mixtral_prefill", 8, 2560, 4096, 14336, 128, torch.bfloat16, 3),
+    # ragged: experts 1, 2, 4 and 6 own no block; K and N past a tile
+    ("ragged", 8, [0, 0, 3, 5, 5, 5, 7], 200, 328, 32, torch.bfloat16, 20),
+    ("ragged_fp32", 8, [0, 0, 3, 5, 5, 5, 7], 200, 328, 32, torch.float32,
+     20),
+    ("qwen3_decode_fp32", 128, 8, 4096, 1536, 8, torch.float32, 10),
+]
+# bf16: one rounding of the bf16 output (the reference's gmm sweep);
+# fp32 at a small K: the order of sums
+GMM_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-5}
+GMM_FP32_K_SCALED = 1024   # from this K on, the fp32 tolerance scales with K
+
+
+def phase_gmm(gen):
+    from repro_torch.kernels import moe_gmm as mg
+    records = {}
+    for name, e, rows, k, n, bt, dt, iters in GMM_CASES:
+        if isinstance(rows, list):
+            ids = torch.tensor(rows, dtype=torch.int32, device="cuda")
+            uniform = None
+        else:
+            ids = torch.arange(e, dtype=torch.int32, device="cuda") \
+                .repeat_interleave(rows // bt)
+            uniform = rows
+        t = ids.numel() * bt
+        x = torch.randn(t, k, device="cuda", generator=gen).to(dt)
+        w = (torch.randn(e, k, n, device="cuda", generator=gen)
+             * k ** -0.5).to(dt)
+        o = mg.moe_gmm(x, w, ids, block_t=bt)
+        o_p = mg.moe_gmm_plain(x, w, ids, bt)
+        torch.cuda.synchronize()
+        diff = (o.float() - o_p.float()).abs()
+        err = diff.max().item()
+        check(bool(torch.isfinite(o.float()).all()), f"gmm {name}: finite")
+        rec = {"case": name, "shape": [t, k, n], "experts": e,
+               "block_t": bt, "dtype": str(dt), "max_abs_err": err,
+               "max_abs_out": o_p.float().abs().max().item()}
+        if dt == torch.float32 and k >= GMM_FP32_K_SCALED:
+            # Both sides sum K products in float32, in other orders: each
+            # is within K * 2^-24 * sum_k |x||w| of the exact sum
+            # (Higham's bound), so they differ by at most twice that.
+            tol = 2.0 * k * 2.0 ** -24
+            bound = tol * mg.moe_gmm_plain(x.abs(), w.abs(), ids, bt)
+            rec["tol"] = f"{tol:.3e} * (|x| @ |w|)"
+            rec["max_err_over_tol"] = (
+                diff / bound.clamp_min(1e-30)).max().item()
+            check(bool((diff <= bound).all()),
+                  f"gmm {name}: kernel vs plain within K-scaled bound")
+        else:
+            tol = GMM_TOL[dt]
+            rec["tol"] = tol
+            check(torch.allclose(o.float(), o_p.float(), rtol=tol, atol=tol),
+                  f"gmm {name}: kernel vs plain {err} (rtol=atol={tol})")
+        # bytes: x, the weights of every expert that owns a block, out
+        used = int(torch.unique(ids).numel())
+        nbytes = (x.numel() + used * k * n + t * n) * x.element_size()
+        rec["bound_ms"], rec["bound_by"] = bound_ms(2.0 * t * k * n, nbytes,
+                                                    dt)
+        rec["ms"] = time_ms(lambda: mg.moe_gmm(x, w, ids, block_t=bt), iters)
+        rec["plain_ms"] = time_ms(lambda: mg.moe_gmm_plain(x, w, ids, bt),
+                                  max(1, iters // 5), warmup=1)
+        # torch.bmm over the (E, rows, K) view computes the same function
+        # when every expert owns the same rows: the model's layout
+        rec["library_ms"] = (time_ms(lambda: torch.bmm(
+            x.view(e, uniform, k), w), iters) if uniform else None)
+        rec["tflops"] = 2.0 * t * k * n / rec["ms"] / 1e9
+        records[name] = rec
+        log("kernel", {"name": "moe_gmm", **rec})
+        del x, w, o, o_p, diff
+        torch.cuda.empty_cache()
+    return {**records["qwen3_prefill"],
+            "shapes": [r for n, r in records.items() if n != "qwen3_prefill"]}
+
+
 # ---------------------------------------------------------------------------
 # 3. serve at full width
 # ---------------------------------------------------------------------------
 def _kernel_modules():
-    from repro_torch.kernels import flash_attention, rmsnorm, ssd_scan
+    from repro_torch.kernels import flash_attention, moe_gmm, rmsnorm, ssd_scan
     return {"flash_attention_fwd": flash_attention, "rmsnorm": rmsnorm,
-            "ssd_scan": ssd_scan}
+            "ssd_scan": ssd_scan, "moe_gmm": moe_gmm}
 
 
 def expected_launches(cfg) -> dict:
-    """Kernel launches of one ``generate`` call of SERVE_GEN tokens: the
-    kernels of prefill once, rmsnorm in prefill and every decode step."""
+    """Kernel launches of one ``generate`` call of SERVE_GEN tokens: flash
+    in prefill once, rmsnorm and moe_gmm in prefill and every decode
+    step."""
     if cfg.family == "hybrid":
         n_apps = cfg.n_layers // cfg.hybrid_period
         # per SSM layer: its norm + the gate norm; per application of the
         # shared block: two norms; one final norm
         n_norms = 2 * cfg.n_layers + 2 * n_apps + 1
         return {"flash_attention_fwd": n_apps, "rmsnorm": n_norms * SERVE_GEN,
-                "ssd_scan": cfg.n_layers}
+                "ssd_scan": cfg.n_layers, "moe_gmm": 0}
+    # per layer ln1, ln2 and, with qk-norm, one launch each for q and k
+    norms = 2 + (2 if cfg.attn.qk_norm else 0)
     return {"flash_attention_fwd": cfg.n_layers,
-            "rmsnorm": (2 * cfg.n_layers + 1) * SERVE_GEN, "ssd_scan": 0}
+            "rmsnorm": (norms * cfg.n_layers + 1) * SERVE_GEN, "ssd_scan": 0,
+            # w1, w3, w2 of every MoE layer
+            "moe_gmm": 3 * cfg.n_layers * SERVE_GEN if cfg.moe else 0}
 
 
-def phase_serve(arch: str):
+def phase_serve(arch: str, depth):
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import exec_config, generate
     from repro_torch.models import build_model
 
     cfg = get_config(arch)
+    full_depth = cfg.n_layers
+    if depth is not None:
+        cfg = dataclasses.replace(cfg, n_layers=depth)
     ex = exec_config(cfg, torch.bfloat16, "cuda")
     model = build_model(cfg).init(SEED, ex)
     n_params = sum(p.numel() for p in model.parameters())
-    log("serve", f"{cfg.name}: {cfg.n_layers} layers, d_model "
-        f"{cfg.d_model}, {n_params / 1e9:.3f} B params in bf16")
+    log("serve", f"{cfg.name}: {cfg.n_layers} of {full_depth} layers, "
+        f"d_model {cfg.d_model}, {n_params / 1e9:.3f} B params in bf16")
     # first call: cuBLAS and allocator warm-up, not counted
     generate(cfg, ex, SERVE_PROMPT, 4, SERVE_BATCH, SEED, model=model)
 
@@ -367,7 +465,8 @@ def phase_serve(arch: str):
                   / g.prefill_s,
                   "decode_tokens_per_s": SERVE_BATCH * n_decode / g.decode_s,
                   "generated_tokens_per_s": SERVE_BATCH * SERVE_GEN / total_s,
-                  "peak_mem_gb": peak_gb, "params_b": n_params / 1e9})
+                  "peak_mem_gb": peak_gb, "params_b": n_params / 1e9,
+                  "layers": cfg.n_layers, "full_depth": full_depth})
     return launches, (cfg, ex, model)
 
 
@@ -444,7 +543,11 @@ def phase_check(arch: str, n_layers: int, prompt: int):
     ex_cpu = exec_config(cfg, torch.float32, "cpu")
     ex_gpu = exec_config(cfg, torch.float32, "cuda")
     model_cpu = build_model(cfg).init(SEED, ex_cpu)
-    model_gpu = copy.deepcopy(model_cpu).to("cuda")
+    # the same weights on the card without a second host copy (a Qwen3-MoE
+    # layer with its embedding and head is ~15 GB in float32)
+    model_gpu = type(model_cpu)(cfg, device="meta", dtype=torch.float32)
+    model_gpu.to_empty(device="cuda")
+    model_gpu.load_state_dict(model_cpu.state_dict())
     runs = {}
     for name, ex, model in (("cuda", ex_gpu, model_gpu),
                             ("cpu", ex_cpu, model_cpu)):
@@ -461,12 +564,15 @@ def phase_check(arch: str, n_layers: int, prompt: int):
     check(same, "card greedy tokens match the CPU run")
 
 
-# the serving paths: arch, depth of the card-vs-CPU check, its prompt
+# the serving paths: arch, serve depth (None: the config's), depth of
+# the card-vs-CPU check, its prompt
 PATHS = (
-    ("tinyllama-1.1b", 2, 200),
+    ("tinyllama-1.1b", None, 2, 200),
     # one period of 6 SSM layers + the shared block, then one leftover
     # layer; the prompt is a multiple of the SSD chunk (128)
-    ("zamba2-7b", 7, 256),
+    ("zamba2-7b", None, 7, 256),
+    # 8 of 94 layers: 21.15 B params, 42.3 GB in bf16 (all 94 are 470 GB)
+    ("qwen3-moe-235b-a22b", 8, 1, 128),
 )
 SOURCES = {
     # kernel: (source, the TPU kernel it replaces)
@@ -476,13 +582,16 @@ SOURCES = {
                 "src/repro/kernels/rmsnorm.py:26"),
     "ssd_scan": ("src/repro_torch/csrc/ssd_scan.cu",
                  "src/repro/kernels/ssd_scan.py:69"),
+    "moe_gmm": ("src/repro_torch/csrc/moe_gmm.cu",
+                "src/repro/kernels/moe_gmm.py:45"),
 }
 
 
 def phase_kernels():
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     return {"flash_attention_fwd": phase_flash(gen),
-            "rmsnorm": phase_rmsnorm(gen), "ssd_scan": phase_ssd(gen)}
+            "rmsnorm": phase_rmsnorm(gen), "ssd_scan": phase_ssd(gen),
+            "moe_gmm": phase_gmm(gen)}
 
 
 def main() -> int:
@@ -490,6 +599,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     import repro_torch  # noqa: F401  (fails outside a checkout of the repo)
+    t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     log("header", f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -498,12 +608,12 @@ def main() -> int:
     phase_build()
     records = phase_kernels()
     by_path = {}
-    for arch, depth, prompt in PATHS:
-        launches, served = phase_serve(arch)
+    for arch, serve_depth, check_depth, prompt in PATHS:
+        launches, served = phase_serve(arch, serve_depth)
         phase_profile(*served)
         del served   # the served model
         torch.cuda.empty_cache()
-        phase_check(arch, depth, prompt)
+        phase_check(arch, check_depth, prompt)
         by_path[arch] = launches
 
     kernels = []
@@ -523,6 +633,7 @@ def main() -> int:
                                    "bound_ms", "bound_by", "library_ms",
                                    "max_abs_err")}
                 for r in rec.get("shapes", [])]})
+    log("done", f"all phases in {time.perf_counter() - t_start:.1f} s")
     print(card_line())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -4,8 +4,8 @@
 numpy arrays (layers stacked on axis 0, linear weights laid out (in, out))
 and returns a state dict for the port's model of ``cfg.family``
 (``transformer.Transformer`` or ``hybrid.Hybrid``), whose linear weights
-are (out, in): each is transposed here.  The SSM's ``conv_w`` keeps its
-(W, C) layout.
+are (out, in): each is transposed here.  The SSM's ``conv_w`` and the
+experts' (E, in, out) ``w1``, ``w3``, ``w2`` keep their layout.
 """
 from __future__ import annotations
 
@@ -24,15 +24,22 @@ def _linear(a) -> torch.Tensor:
 
 
 def _block(blk: dict, idx, pre: str, cfg: ModelConfig) -> dict:
-    """One attention + MLP block; ``idx`` picks a layer of a stacked tree
-    (``()`` takes the arrays as they are)."""
-    attn, mlp = blk["attn"], blk["mlp"]
+    """One attention + MLP (or MoE) block; ``idx`` picks a layer of a
+    stacked tree (``()`` takes the arrays as they are)."""
+    attn = blk["attn"]
     sd = {pre + "ln1": _t(blk["ln1"][idx]), pre + "ln2": _t(blk["ln2"][idx])}
     for name in ("wq", "wk", "wv", "wo"):
         sd[pre + f"attn.{name}.weight"] = _linear(attn[name][idx])
     if cfg.attn.qk_norm:
         sd[pre + "attn.q_norm"] = _t(attn["q_norm"][idx])
         sd[pre + "attn.k_norm"] = _t(attn["k_norm"][idx])
+    if "moe" in blk:
+        moe = blk["moe"]
+        sd[pre + "moe.router.weight"] = _linear(moe["router"][idx])
+        for name in ("w1", "w2", "w3"):
+            sd[pre + f"moe.{name}"] = _t(moe[name][idx])
+        return sd
+    mlp = blk["mlp"]
     for name in ("w1", "w2", "w3"):
         if name in mlp:
             sd[pre + f"mlp.{name}.weight"] = _linear(mlp[name][idx])

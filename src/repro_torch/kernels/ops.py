@@ -13,6 +13,9 @@ from repro_torch.kernels.flash_attention import \
     flash_attention_fwd as _fa_cuda
 from repro_torch.kernels.flash_attention import \
     flash_attention_plain as _fa_plain
+from repro_torch.kernels.moe_gmm import check_args as _gmm_check
+from repro_torch.kernels.moe_gmm import moe_gmm as _gmm_cuda
+from repro_torch.kernels.moe_gmm import moe_gmm_plain as _gmm_plain
 from repro_torch.kernels.ref import NEG_INF
 from repro_torch.kernels.rmsnorm import rmsnorm as _rmsnorm_cuda
 from repro_torch.kernels.rmsnorm import rmsnorm_plain as _rmsnorm_plain
@@ -93,3 +96,15 @@ def ssd(x, dt, A, B, C, *, chunk=128):
     if _is_cuda(x, dt, A, B, C):
         return _ssd_cuda(x, dt, A, B, C, chunk=chunk)
     return _ssd_plain(x, dt, A, B, C, chunk=chunk)
+
+
+def moe_gmm(x, w, block_group_ids, *, block_t):
+    """Grouped matmul over expert-sorted, block-padded rows.  x: (T, K);
+    w: (E, K, N); block_group_ids: (T / block_t,) int32, the expert of each
+    block of ``block_t`` rows -> (T, N) in x's dtype, summed in float32.
+    The kernel's block-id layout is the one contract (the group-sizes form
+    is a test oracle, ``ref.moe_gmm_ref``)."""
+    if _is_cuda(x, w, block_group_ids):
+        return _gmm_cuda(x, w, block_group_ids, block_t=block_t)
+    _gmm_check(x, w, block_group_ids, block_t)
+    return _gmm_plain(x, w, block_group_ids, block_t)

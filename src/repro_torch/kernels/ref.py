@@ -121,3 +121,25 @@ def ssd_chunked_ref(x, dt, A, B, C, D=None, *, chunk=64, initial_state=None):
     if D is not None:
         y = y + x.float() * D.float()[None, None, :, None]
     return y.to(x.dtype), state
+
+
+# ---------------------------------------------------------------------------
+# Grouped matmul (MoE expert FFN)
+# ---------------------------------------------------------------------------
+def moe_gmm_ref(x, w, group_sizes):
+    """x: (T, K) tokens sorted by expert; w: (E, K, N); group_sizes: (E,).
+
+    Returns (T, N) in x's dtype, from float32 products.  Rows beyond
+    sum(group_sizes) are zeros.  A Python-loop oracle for the tests: the
+    port's contract (``ops.moe_gmm``) takes block ids, not group sizes.
+    """
+    out = torch.zeros((x.shape[0], w.shape[-1]), dtype=x.dtype,
+                      device=x.device)
+    start = 0
+    for e, g in enumerate(int(g) for g in group_sizes):
+        if g == 0:
+            continue
+        seg = x[start:start + g].float() @ w[e].float()
+        out[start:start + g] = seg.to(x.dtype)
+        start += g
+    return out

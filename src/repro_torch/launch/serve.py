@@ -2,8 +2,11 @@
 ``repro/launch/serve.py``).
 
 ``python -m repro_torch.launch.serve --arch tinyllama-1.1b`` (or
-``--arch zamba2-7b``) serves on the GPU in bfloat16; ``--device cpu`` runs
-on the CPU in float32 (plain PyTorch in place of the kernels).
+``--arch zamba2-7b``, ``--arch mixtral-8x7b``, ``--arch
+qwen3-moe-235b-a22b``) serves on the GPU in bfloat16; ``--device cpu``
+runs on the CPU in float32 (plain PyTorch in place of the kernels).  The
+MoE archs at full depth exceed one 80 GB card (Mixtral-8x7B is 93 GB in
+bfloat16, Qwen3-MoE 470 GB); ``--reduced`` serves their tiny versions.
 """
 from __future__ import annotations
 
@@ -81,7 +84,10 @@ def exec_config(cfg, dtype, device) -> ExecConfig:
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="tinyllama-1.1b")
+    ap.add_argument("--arch", default="tinyllama-1.1b",
+                    help="a dense (tinyllama-1.1b, gemma2-2b, ...), hybrid "
+                    "(zamba2-7b) or MoE (mixtral-8x7b, "
+                    "qwen3-moe-235b-a22b) arch")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen-len", type=int, default=16)

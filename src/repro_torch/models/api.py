@@ -1,5 +1,5 @@
 """Unified model API: ``build_model(cfg)`` -> ModelFns (counterpart of
-``repro/models/api.py``; the dense and hybrid families so far).
+``repro/models/api.py``; the dense, MoE and hybrid families so far).
 
   init(seed, ex) -> model (an nn.Module holding the parameters)
   prefill(model, batch, ex, cache=None) -> (logits, cache)
@@ -21,6 +21,7 @@ from repro_torch.models.common import check_device
 # family -> (seeded init, cache allocator)
 _FAMILIES = {
     "dense": (transformer.lm_init, transformer.init_cache),
+    "moe": (transformer.lm_init, transformer.init_cache),
     "hybrid": (hybrid.hybrid_init, hybrid.init_cache),
 }
 PORTED_FAMILIES = tuple(_FAMILIES)

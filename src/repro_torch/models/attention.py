@@ -41,11 +41,19 @@ def _project_qkv(attn: Attention, x, a: AttnConfig, rope, norm_eps):
 
 
 def layer_window(a: AttnConfig, is_global: bool):
-    """Window of a layer: None (full) or an int.  Layers are a Python loop
-    here, so every window is static."""
-    if a.window is None or is_global:
+    """Window of a layer: None (full) or an int.  A uniform window
+    (``local_global_period == 0``, mixtral) holds in every layer.  Layers
+    are a Python loop here, so every window is static."""
+    if a.window is None:
         return None
-    return int(a.window)
+    if a.local_global_period == 0:
+        return int(a.window)
+    return None if is_global else int(a.window)
+
+
+def is_rolling(a: AttnConfig) -> bool:
+    """A uniform window keeps a rolling KV cache of ``window`` positions."""
+    return bool(a.window) and a.local_global_period == 0
 
 
 def attn_train(attn: Attention, x, a: AttnConfig, *, window, norm_eps, rope,
@@ -64,16 +72,25 @@ def attn_train(attn: Attention, x, a: AttnConfig, *, window, norm_eps, rope,
 
 
 def attn_decode(attn: Attention, x, cache_k, cache_v, pos: int,
-                a: AttnConfig, *, window, norm_eps, rope):
+                a: AttnConfig, *, window, norm_eps, rope, rolling=False):
     """One-token decode.  x: (B,1,D_model); caches: (B,Hkv,Smax,hd).
 
     pos: index of the new token.  The new K/V are written into the caches
-    in place (the reference returns updated copies).
+    in place (the reference returns updated copies).  ``rolling``: the
+    cache is a rolling buffer, written at ``pos % Smax`` and read whole
+    once full, with no window (the reference's mixtral path; its slots
+    agree with prefill's only when the prompt is a multiple of the window,
+    ROADMAP C7).
     """
     b = x.shape[0]
+    smax = cache_k.shape[2]
     q, k, v = _project_qkv(attn, x, a, rope, norm_eps)
-    cache_k[:, :, pos] = k[:, :, 0]
-    cache_v[:, :, pos] = v[:, :, 0]
+    slot = pos % smax if rolling else pos
+    cache_k[:, :, slot] = k[:, :, 0]
+    cache_v[:, :, slot] = v[:, :, 0]
+    if rolling:
+        # every slot is within the window; mask only unfilled slots
+        pos, window = min(pos, smax - 1), None
     o = ops.decode_attention(q, cache_k, cache_v, pos, window=window,
                              softcap=a.attn_softcap)
     out = o.transpose(1, 2).reshape(b, 1, a.n_heads * a.head_dim)

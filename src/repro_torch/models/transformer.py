@@ -1,15 +1,16 @@
-"""Decoder-only dense transformer LM (counterpart of
-``repro/models/transformer.py``, dense family).
+"""Decoder-only transformer LM (counterpart of
+``repro/models/transformer.py``, dense and MoE families).
 
 The layers are a Python loop over an ``nn.ModuleList``; local/global
-window alternation (gemma) is a static window per layer.
+window alternation (gemma) is a static window per layer, and a uniform
+window (mixtral) keeps a rolling KV cache of ``window`` positions.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import attention, common
+from repro_torch.models import attention, common, moe
 
 
 class Block(torch.nn.Module):
@@ -19,22 +20,26 @@ class Block(torch.nn.Module):
         self.ln1 = torch.nn.Parameter(torch.empty(cfg.d_model, **kw))
         self.ln2 = torch.nn.Parameter(torch.empty(cfg.d_model, **kw))
         self.attn = attention.Attention(cfg.d_model, cfg.attn, **kw)
-        self.mlp = common.MLP(cfg.d_model, cfg.d_ff, cfg.gated_mlp, **kw)
+        if cfg.moe is not None:
+            self.moe = moe.MoE(cfg.d_model, cfg.moe, **kw)
+        else:
+            self.mlp = common.MLP(cfg.d_model, cfg.d_ff, cfg.gated_mlp, **kw)
+
+    def ffn(self, h, cfg: ModelConfig):
+        if cfg.moe is not None:
+            return moe.moe_apply(self.moe, h, cfg.moe)
+        return common.mlp_apply(self.mlp, h, cfg.gated_mlp)
 
 
 class Transformer(torch.nn.Module):
-    """Parameters of a dense LM.  Linear weights are stored (out, in), the
-    transpose of the reference's (in, out) layout."""
+    """Parameters of a dense or MoE LM.  Linear weights are stored (out,
+    in), the transpose of the reference's (in, out) layout; expert weights
+    keep the reference's (E, in, out)."""
 
     def __init__(self, cfg: ModelConfig, *, device=None, dtype=None):
         super().__init__()
-        a = cfg.attn
-        if a is None or cfg.moe is not None:
-            raise NotImplementedError(f"{cfg.name}: not a dense LM")
-        if a.window and a.local_global_period == 0:
-            raise NotImplementedError(
-                f"{cfg.name}: a uniform sliding window (rolling KV cache) "
-                f"is not ported")
+        if cfg.attn is None:
+            raise NotImplementedError(f"{cfg.name}: not a decoder LM")
         kw = {"device": device, "dtype": dtype}
         self.cfg = cfg
         self.embed = torch.nn.Parameter(
@@ -56,12 +61,15 @@ class Transformer(torch.nn.Module):
         """tokens: (B, S) -> (last-position logits (B, V), cache).
 
         ``cache``: None allocates one of S positions; a larger cache from
-        ``init_cache`` receives the prompt's K/V in place at [0, S).
+        ``init_cache`` receives the prompt's K/V in place at [0, S).  A
+        rolling cache receives the last min(S, window) positions at the
+        front, as the reference's trimmed cache (ROADMAP C7).
         """
         cfg, a = self.cfg, self.cfg.attn
         b, s = tokens.shape
         if cache is None:
             cache = init_cache(cfg, b, s, ex.compute_dtype, tokens.device)
+        clen = cache_len(cfg, s)
         x = self.embed[tokens].to(ex.compute_dtype)
         rope = common.rope_angles(torch.arange(s, device=tokens.device),
                                   a.head_dim, a.rope_theta)
@@ -73,9 +81,9 @@ class Transformer(torch.nn.Module):
                 norm_eps=cfg.norm_eps, rope=rope, ex=ex)
             x = x + att
             h = common.norm(x, blk.ln2, cfg.norm_eps)
-            x = x + common.mlp_apply(blk.mlp, h, cfg.gated_mlp)
-            cache["k"][i, :, :, :s] = k
-            cache["v"][i, :, :, :s] = v
+            x = x + blk.ffn(h, cfg)
+            cache["k"][i, :, :, :clen] = k[:, :, s - clen:]
+            cache["v"][i, :, :, :clen] = v[:, :, s - clen:]
         x = common.norm(x, self.final_norm, cfg.norm_eps)
         logits = self._unembed(x[:, -1:])[:, 0]
         return logits, cache
@@ -94,9 +102,10 @@ class Transformer(torch.nn.Module):
             x = x + attention.attn_decode(
                 blk.attn, h, cache["k"][i], cache["v"][i], pos, a,
                 window=attention.layer_window(a, self.is_global(i)),
-                norm_eps=cfg.norm_eps, rope=rope)
+                norm_eps=cfg.norm_eps, rope=rope,
+                rolling=attention.is_rolling(a))
             h = common.norm(x, blk.ln2, cfg.norm_eps)
-            x = x + common.mlp_apply(blk.mlp, h, cfg.gated_mlp)
+            x = x + blk.ffn(h, cfg)
         x = common.norm(x, self.final_norm, cfg.norm_eps)
         logits = self._unembed(x[:, 0])
         if cfg.logit_softcap:
@@ -114,8 +123,9 @@ def lm_init(cfg: ModelConfig, ex: common.ExecConfig, seed: int = 0
             ) -> Transformer:
     """Seeded random weights, made on ``ex.device`` in ``ex.param_dtype``.
 
-    Linear weights are normal * in**-0.5, the embedding normal * 0.02 and
-    norm weights ones, as in the reference (whose jax.random draws differ).
+    Linear weights are normal * in**-0.5 (an expert weight (E, in, out)
+    too: its fan-in is also dim 1), the embedding normal * 0.02 and norm
+    weights ones, as in the reference (whose jax.random draws differ).
     """
     device = common.check_device(ex.device)
     model = Transformer(cfg, device="meta", dtype=ex.param_dtype)
@@ -132,9 +142,19 @@ def lm_init(cfg: ModelConfig, ex: common.ExecConfig, seed: int = 0
     return model
 
 
+def cache_len(cfg: ModelConfig, seq_len: int) -> int:
+    """Cache positions for ``seq_len`` tokens: min(seq_len, window) for a
+    rolling cache, else seq_len."""
+    if attention.is_rolling(cfg.attn):
+        return min(seq_len, cfg.attn.window)
+    return seq_len
+
+
 def init_cache(cfg: ModelConfig, batch: int, seq_len: int, dtype, device):
-    """Zeroed KV cache for ``seq_len`` positions, (L, B, Hkv, S, hd)."""
+    """Zeroed KV cache for ``seq_len`` positions, (L, B, Hkv, S, hd), S =
+    ``cache_len(cfg, seq_len)``."""
     a = cfg.attn
-    shape = (cfg.n_layers, batch, a.n_kv_heads, seq_len, a.head_dim)
+    shape = (cfg.n_layers, batch, a.n_kv_heads, cache_len(cfg, seq_len),
+             a.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}

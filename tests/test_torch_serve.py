@@ -50,7 +50,17 @@ CASES = {
     "tinyllama-3l-narrow": _narrow_3_layer,
     # window alternation, attention + logit softcap, tied head
     "gemma2-reduced": lambda get: get("gemma2_2b").reduced(),
+    # MoE (4 experts, top-2) with qk-norm
+    "qwen3-moe-reduced": lambda get: get("qwen3_moe_235b_a22b").reduced(),
+    # MoE with a uniform window of 16: a rolling KV cache.  At prompt 24
+    # decode overwrites a slot still in the window (ROADMAP C7), and the
+    # port matches the reference as it is; at prompt 32 (a multiple of the
+    # window) the slots agree
+    "mixtral-reduced": lambda get: get("mixtral_8x7b").reduced(),
+    "mixtral-reduced-p32": lambda get: get("mixtral_8x7b").reduced(),
 }
+# prompt length of a case (default 24)
+PROMPTS = {"mixtral-reduced-p32": 32}
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
@@ -73,7 +83,7 @@ def test_prefill_decode_match_jax(case):
     model = fns.init(0, ex)
     model.load_state_dict(params_from_jax(np_params, pcfg))
 
-    b, s = 2, 24
+    b, s = 2, PROMPTS.get(case, 24)
     tokens = np.random.default_rng(0).integers(0, cfg.vocab, (b, s),
                                                dtype=np.int32)
     j_logits, j_cache = j_prefill(params, jnp.asarray(tokens))
@@ -123,6 +133,21 @@ def test_generate_runs_reduced_on_cpu():
     assert torch.equal(g1.tokens, g2.tokens)
 
 
+@pytest.mark.parametrize("arch", ["qwen3_moe_235b_a22b", "mixtral_8x7b"])
+def test_generate_runs_moe_reduced_on_cpu(arch):
+    """The MoE family through the serving entry point; mixtral's rolling
+    cache of 16 positions wraps (prompt 20 + 12 new tokens)."""
+    from repro_torch.launch.serve import generate
+    cfg = torch_get_config(arch).reduced()
+    ex = ExecConfig(device="cpu", attn_block=16)
+    g1 = generate(cfg, ex, prompt_len=20, gen_len=12, batch=2, seed=1)
+    g2 = generate(cfg, ex, prompt_len=20, gen_len=12, batch=2, seed=1)
+    assert g1.tokens.shape == (2, 12)
+    assert int(g1.tokens.min()) >= 0 and int(g1.tokens.max()) < cfg.vocab
+    assert torch.isfinite(g1.prefill_logits).all()
+    assert torch.equal(g1.tokens, g2.tokens)
+
+
 def test_generate_runs_zamba2_reduced_on_cpu():
     """The hybrid family through the serving entry point: SSD prefill with
     the config's chunk, decode of the SSM state, the same tokens from the
@@ -139,6 +164,32 @@ def test_generate_runs_zamba2_reduced_on_cpu():
 
 
 def test_other_families_raise():
-    for arch in ("mamba2_780m", "mixtral_8x7b"):
+    for arch in ("mamba2_780m", "whisper_medium"):
         with pytest.raises(NotImplementedError, match="family"):
             build_model(torch_get_config(arch))
+
+
+@pytest.mark.parametrize("prompt", [12, 24, 32])
+def test_rolling_cache_c7_decode_vs_full_prefill(prompt):
+    """ROADMAP C7, as the port reproduces it: with a rolling cache of 16
+    positions, the first decode step after a prompt of 24 disagrees with
+    a full prefill of the same 25 tokens (decode overwrites a slot still
+    in the window), while prompts of 12 and 32 agree.  Reduced Mixtral
+    turned dense, so only the cache layout differs."""
+    cfg = dataclasses.replace(torch_get_config("mixtral_8x7b").reduced(),
+                              family="dense", moe=None)
+    assert cfg.attn.window == 16
+    ex = ExecConfig(device="cpu", attn_block=16)
+    fns = build_model(cfg)
+    model = fns.init(0, ex)
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, (2, prompt + 1))).long()
+    full, _ = fns.prefill(model, {"tokens": tokens}, ex)
+    _, cache = fns.prefill(model, {"tokens": tokens[:, :prompt]}, ex,
+                           fns.init_cache(2, prompt + 1, ex))
+    step, _ = fns.decode_step(model, cache, tokens[:, prompt], prompt, ex)
+    err = (step - full).abs().max().item()
+    if prompt % cfg.attn.window and prompt > cfg.attn.window:
+        assert err > 0.1 * full.abs().max().item()
+    else:
+        assert err < TOL
