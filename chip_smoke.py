@@ -35,6 +35,8 @@ from __future__ import annotations
 import dataclasses
 import json
 import pathlib
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -111,6 +113,52 @@ def phase_build():
         for line in rec["log"].splitlines():
             if "registers" in line or "spill" in line:
                 log("build", f"{name}: {line.strip()}")
+    log("build", {"flash_attention": flash_build_report(
+        _build.BUILD_LOG["flash_attention"]["log"],
+        _build.BUILD_DIR / "libflash_attention.so")})
+
+
+def _kernel_name(mangled: str) -> str:
+    """``fa_wgmma_kernel<128, 112>`` from its mangled name."""
+    m = re.search(r"\d+(fa_[a-z_]+?kernel)I(.*?)EE", mangled)
+    if not m:
+        return mangled
+    args = ["float" if f else n for f, n in re.findall(r"(f)|Li(\d+)",
+                                                        m.group(2))]
+    return f"{m.group(1)}<{', '.join(args)}>"
+
+
+def flash_build_report(ptxas_log: str, lib: pathlib.Path) -> dict:
+    """Registers, static shared memory and spills of each kernel
+    instantiation (from ``-Xptxas -v``; dynamic shared memory is set at
+    launch), and the tensor-core instructions in the SASS (``cuobjdump``,
+    where the toolkit has it)."""
+    per_kernel, name = {}, None
+    for line in ptxas_log.splitlines():
+        if "Compiling entry function" in line:
+            name = _kernel_name(line.split("'")[1])
+            per_kernel[name] = {}
+        elif name and "spill stores" in line:
+            per_kernel[name]["spills"] = line.split(":", 1)[-1].strip()
+        elif name and "Used" in line and "registers" in line:
+            per_kernel[name]["usage"] = line.split(":", 1)[-1].strip()
+    sass = {"cuobjdump": None}
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if pathlib.Path(cuobjdump).exists():
+        out = subprocess.run([cuobjdump, "-sass", str(lib)],
+                             capture_output=True, text=True, timeout=300).stdout
+        counts, fn = {}, None
+        for line in out.splitlines():
+            if "Function :" in line:
+                fn = _kernel_name(line.split("Function :", 1)[1].strip())
+                counts[fn] = {"HMMA": 0, "HGMMA": 0}
+            elif fn:
+                for op in ("HGMMA", "HMMA"):
+                    if f" {op}." in line:
+                        counts[fn][op] += 1
+                        break
+        sass = {"cuobjdump": cuobjdump, "tensor_core_instructions": counts}
+    return {"ptxas": per_kernel, "sass": sass}
 
 
 # ---------------------------------------------------------------------------
@@ -143,6 +191,26 @@ FLASH_CASES = [
     ("d256_fp32", 1, 2, 1, 130, 256, None, 0.0, False, torch.float32),
     # head_dim 128: Qwen3-MoE's prefill shape (64 query heads, 4 kv heads)
     ("d128_qwen3", 8, 64, 4, 1024, 128, None, 0.0, True, torch.bfloat16),
+    # float32 and bfloat16 run different kernels (FMA pipes, tensor
+    # cores): each fp32-only shape above has a bf16 twin
+    ("d32_bf16", 1, 8, 2, 130, 32, None, 30.0, False, torch.bfloat16),
+    ("d112_bf16_ragged", 1, 4, 4, 200, 112, None, 0.0, True, torch.bfloat16),
+    ("d256_bf16", 1, 2, 1, 130, 256, None, 0.0, False, torch.bfloat16),
+    # a window and an S that are multiples of no tile
+    ("window_ragged", 2, 32, 4, 1000, 64, 100, 0.0, True, torch.bfloat16),
+    # head_dims below the width they are stored at, through every bf16
+    # instantiation (64; 128; 128 at N=112; 256), with a softcap, windows
+    # and a non-causal window
+    ("d8_bf16", 1, 4, 2, 200, 8, None, 0.0, True, torch.bfloat16),
+    ("d24_bf16_window", 1, 4, 2, 200, 24, 50, 0.0, True, torch.bfloat16),
+    ("d40_bf16_noncausal", 1, 4, 1, 200, 40, None, 0.0, False,
+     torch.bfloat16),
+    ("d72_bf16_softcap", 1, 4, 2, 200, 72, None, 20.0, True, torch.bfloat16),
+    ("d104_bf16", 1, 4, 4, 333, 104, None, 0.0, True, torch.bfloat16),
+    ("d120_bf16_window", 1, 4, 2, 200, 120, 64, 0.0, True, torch.bfloat16),
+    ("d136_bf16", 1, 2, 1, 200, 136, None, 0.0, True, torch.bfloat16),
+    ("d248_bf16_noncausal_window", 1, 2, 2, 300, 248, 100, 0.0, False,
+     torch.bfloat16),
 ]
 # cases timed as well as checked; "main" is TinyLlama's prefill shape
 FLASH_TIMED = ("main", "d112_zamba2", "d256_gemma2", "d128_qwen3")
@@ -180,6 +248,7 @@ def phase_flash(gen):
             rec["bound_ms"], rec["bound_by"] = bound_ms(flops, nbytes, dt)
             rec["ms"] = time_ms(lambda: fa.flash_attention_fwd(q, k, v, win,
                                                                **kw), 20)
+            rec["tflops"] = flops / rec["ms"] / 1e9
             rec["plain_ms"] = time_ms(
                 lambda: fa.flash_attention_plain(q, k, v, win, **kw), 5)
             # no single PyTorch call takes a window or a softcap

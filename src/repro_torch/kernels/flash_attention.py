@@ -4,7 +4,8 @@ its launch count.
 The kernel (``csrc/flash_attention.cu``) replaces the Pallas TPU kernel
 ``repro/kernels/flash_attention.py::flash_attention_fwd``.  The wrapper
 keeps that name: ``flash_attention_fwd`` launches the kernel on CUDA
-tensors only; ``flash_attention_plain`` is the same function in plain
+tensors only (bfloat16 on the tensor cores through wgmma and TMA, float32
+on the FMA pipes); ``flash_attention_plain`` is the same function in plain
 PyTorch, which the CPU path and the comparisons on the card use.  Both
 take q (B, Hq, S, D) and k/v (B, Hkv, S, D) and return
 (o (B, Hq, S, D) in q.dtype, lse (B, Hq, S) in float32).
@@ -21,21 +22,25 @@ from repro_torch.kernels.ref import NEG_INF
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 256
-KERNEL_BLOCK = 64   # the kernel's q and k tile
-# widths the kernel is instantiated at; head_dim d runs at the smallest
-# that holds it, with zeros past d
-KERNEL_HEAD_DIMS = (16, 32, 64, 128, 256)
+# "no window" is passed as S + KERNEL_BLOCK: wider than any row-key distance
+KERNEL_BLOCK = 64
+# widths each dtype's kernel is instantiated at; head_dim d runs at the
+# smallest that holds it, with zeros past d (the bf16 kernel's tiles are
+# 64-column swizzled slabs)
+KERNEL_HEAD_DIMS = {torch.float32: (16, 32, 64, 128, 256),
+                    torch.bfloat16: (64, 128, 256)}
 
 # Times flash_attention_fwd has launched its kernel in this process.
 launches = 0
 
 
-def kernel_head_dim(d: int) -> int:
-    """The kernel width head_dim ``d`` runs at; raises if it takes none."""
+def kernel_head_dim(d: int, dtype=torch.float32) -> int:
+    """The width head_dim ``d`` runs at in ``dtype``'s kernel; raises if
+    it takes none."""
     if d % 8 or not 8 <= d <= MAX_HEAD_DIM:
         raise ValueError(f"head_dim must be a multiple of 8 in [8, "
                          f"{MAX_HEAD_DIM}], got {d}")
-    return next(w for w in KERNEL_HEAD_DIMS if w >= d)
+    return next(w for w in KERNEL_HEAD_DIMS[dtype] if w >= d)
 
 
 def _check_window(window, s, block):
@@ -115,7 +120,7 @@ def flash_attention_fwd(q, k, v, window=None, *, causal=True, softcap=0.0,
     if k.shape[0] != b or k.shape[3] != d or sq != sk:
         raise ValueError(f"self-attention only: q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}")
-    kernel_head_dim(d)
+    kernel_head_dim(d, q.dtype)
     if hkv == 0 or hq % hkv:
         raise ValueError(f"Hq must be a multiple of Hkv, got Hq={hq}, "
                          f"Hkv={hkv}")

@@ -101,13 +101,58 @@ def test_flash_rejects_cross_attention_and_empty_window():
         ops.flash_attention(q, q, q, window=0)
 
 
-@pytest.mark.parametrize("d,width", [(8, 16), (16, 16), (64, 64),
-                                     (112, 128), (128, 128), (136, 256),
-                                     (256, 256)])
-def test_flash_kernel_width_holds_head_dim(d, width):
+WIDTHS = {torch.float32: [(8, 16), (16, 16), (64, 64), (112, 128),
+                          (128, 128), (136, 256), (256, 256)],
+          # bf16's tensor-core kernel stores 64-column swizzled slabs
+          torch.bfloat16: [(8, 64), (32, 64), (64, 64), (72, 128),
+                           (112, 128), (128, 128), (136, 256), (256, 256)]}
+
+
+@pytest.mark.parametrize(
+    "d,width,dtype",
+    [(d, w, dt) for dt, rows in WIDTHS.items() for d, w in rows],
+    ids=[f"{d}-{w}" + ("" if dt == torch.float32 else "-bf16")
+         for dt, rows in WIDTHS.items() for d, w in rows])
+def test_flash_kernel_width_holds_head_dim(d, width, dtype):
     """The kernel runs head_dim d at the smallest instantiated width that
-    holds it (zeros past d)."""
-    assert port_flash.kernel_head_dim(d) == width
+    holds it (zeros past d): float32's FMA kernel by default, bfloat16's
+    tensor-core kernel at its own widths."""
+    if dtype == torch.float32:
+        assert port_flash.kernel_head_dim(d) == width
+    assert port_flash.kernel_head_dim(d, dtype) == width
+
+
+SERVED = [
+    # b, hq, hkv, d: TinyLlama's head_dim and an 8:1 group, Zamba2's 112
+    # (MHA), Qwen3-MoE's 128 with its group of 16
+    (1, 8, 1, 64),
+    (1, 2, 2, 112),
+    (1, 16, 1, 128),
+]
+
+
+@pytest.mark.parametrize("b,hq,hkv,d", SERVED)
+def test_flash_plain_vs_pallas_bf16_served_length(b, hq, hkv, d):
+    """bf16 at the served prompt length, causal.  The Pallas kernel rounds
+    P to bf16 before the P.V product (``p.astype(v.dtype)``), as a
+    tensor-core kernel must; the plain version keeps P in float32.  Their
+    agreement at S=1024 within the card's bf16 tolerances (o 2e-2, lse
+    1e-3) is what lets the card hold its tensor-core kernel against the
+    plain version at those tolerances.  Rounding P moves o only: lse is
+    summed from float32 P on both sides."""
+    np_dt, t_dt, j_dt = DTYPES["bfloat16"]
+    s = 1024
+    q, k, v = _inputs([(b, hq, s, d), (b, hkv, s, d), (b, hkv, s, d)], np_dt,
+                      seed=7)
+    o_j, lse_j = flash_attention_fwd(
+        jnp.asarray(q, j_dt), jnp.asarray(k, j_dt), jnp.asarray(v, j_dt),
+        None, causal=True, block_q=128, block_k=128, interpret=True)
+    o_t, lse_t = port_flash.flash_attention_plain(
+        _torch(q, t_dt), _torch(k, t_dt), _torch(v, t_dt), None, causal=True)
+    np.testing.assert_allclose(_f32(o_t), _f32(np.asarray(o_j, np.float32)),
+                               rtol=2e-2, atol=2e-2)
+    np.testing.assert_allclose(_f32(lse_t), np.asarray(lse_j), rtol=1e-3,
+                               atol=1e-3)
 
 
 @pytest.mark.parametrize("d", [4, 12, 100, 264])
