@@ -6,10 +6,14 @@
 Phases, in order; any failure raises and exits non-zero:
 
 1. build  - compile every CUDA kernel of the serving paths from
-   ``src/repro_torch/csrc`` (one nvcc per source, all in parallel);
+   ``src/repro_torch/csrc`` (one nvcc per source, all in parallel), and
+   report each flash and gmm instantiation's registers, spills and
+   tensor-core instructions; the gmm's wgmma kernels must not spill and
+   must hold HGMMA;
 2. kernels - hold each kernel against its plain PyTorch version on the
    card at the serving paths' shapes, and time the kernel, the plain
-   version and the one PyTorch call that computes the same function;
+   version and the one PyTorch call that computes the same function (the
+   gmm also with ids outside [0, E));
 3. three serving paths, each with seeded random weights at full width,
    bf16: TinyLlama-1.1B (22 layers; flash + rmsnorm), Zamba2-7B (81 Mamba2
    layers + 13 applications of the shared attention block; ssd_scan +
@@ -50,6 +54,8 @@ import torch.nn.functional as F  # noqa: E402
 # H100 SXM data-sheet peaks (dense): bf16 tensor cores, fp32 FMA pipes, HBM3.
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 PEAK_BYTES_PER_S = 3.35e12
+
+NO_SPILL = "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"
 
 SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 8, 1024, 64
 CHECK_BATCH, CHECK_TOKENS = 2, 8
@@ -113,14 +119,25 @@ def phase_build():
         for line in rec["log"].splitlines():
             if "registers" in line or "spill" in line:
                 log("build", f"{name}: {line.strip()}")
-    log("build", {"flash_attention": flash_build_report(
-        _build.BUILD_LOG["flash_attention"]["log"],
-        _build.BUILD_DIR / "libflash_attention.so")})
+    reports = {name: build_report(_build.BUILD_LOG[name]["log"],
+                                  _build.BUILD_DIR / f"lib{name}.so")
+               for name in ("flash_attention", "moe_gmm")}
+    log("build", reports)
+    # the gmm's wgmma kernels: on the tensor cores' wgmma path, no spill
+    gmm = reports["moe_gmm"]
+    counts = gmm["sass"].get("tensor_core_instructions", {})
+    wgmma = sorted(k for k in gmm["ptxas"] if k.startswith("gmm_wgmma_kernel"))
+    check(len(wgmma) == 2, f"moe_gmm: two wgmma instantiations, got {wgmma}")
+    for name in wgmma:
+        check(gmm["ptxas"][name].get("spills") == NO_SPILL,
+              f"{name}: no spill ({gmm['ptxas'][name]})")
+        check(counts.get(name, {}).get("HGMMA", 0) > 0,
+              f"{name}: HGMMA in its SASS ({counts.get(name)})")
 
 
 def _kernel_name(mangled: str) -> str:
     """``fa_wgmma_kernel<128, 112>`` from its mangled name."""
-    m = re.search(r"\d+(fa_[a-z_]+?kernel)I(.*?)EE", mangled)
+    m = re.search(r"\d+([a-z_]+?_kernel)I(.*?)EE", mangled)
     if not m:
         return mangled
     args = ["float" if f else n for f, n in re.findall(r"(f)|Li(\d+)",
@@ -128,12 +145,14 @@ def _kernel_name(mangled: str) -> str:
     return f"{m.group(1)}<{', '.join(args)}>"
 
 
-def flash_build_report(ptxas_log: str, lib: pathlib.Path) -> dict:
+def build_report(ptxas_log: str, lib: pathlib.Path) -> dict:
     """Registers, static shared memory and spills of each kernel
     instantiation (from ``-Xptxas -v``; dynamic shared memory is set at
-    launch), and the tensor-core instructions in the SASS (``cuobjdump``,
-    where the toolkit has it)."""
+    launch), the compiler's warnings, and the tensor-core instructions in
+    the SASS (``cuobjdump``, where the toolkit has it)."""
     per_kernel, name = {}, None
+    warnings = [line.strip() for line in ptxas_log.splitlines()
+                if "warning" in line.lower()]
     for line in ptxas_log.splitlines():
         if "Compiling entry function" in line:
             name = _kernel_name(line.split("'")[1])
@@ -158,7 +177,7 @@ def flash_build_report(ptxas_log: str, lib: pathlib.Path) -> dict:
                         counts[fn][op] += 1
                         break
         sass = {"cuobjdump": cuobjdump, "tensor_core_instructions": counts}
-    return {"ptxas": per_kernel, "sass": sass}
+    return {"ptxas": per_kernel, "warnings": warnings, "sass": sass}
 
 
 # ---------------------------------------------------------------------------
@@ -379,13 +398,22 @@ GMM_CASES = [
     # dtype, iterations timed.  Qwen3-MoE at batch 8 x prompt 1024: the
     # capacity is 640 rows of 128 experts; w1 and w3 are 4096 -> 1536, w2
     # 1536 -> 4096.  Decode at batch 8: 8 rows (one block) per expert.
+    # bf16 at block_t 64 and 128 runs the wgmma kernel, at 8-32 mma.sync.
     ("qwen3_prefill", 128, 640, 4096, 1536, 128, torch.bfloat16, 10),
     ("qwen3_prefill_w2", 128, 640, 1536, 4096, 128, torch.bfloat16, 10),
     ("qwen3_decode", 128, 8, 4096, 1536, 8, torch.bfloat16, 20),
     # Mixtral-8x7B at batch 8 x prompt 1024: 2560 rows of 8 experts
     ("mixtral_prefill", 8, 2560, 4096, 14336, 128, torch.bfloat16, 3),
+    # block_t 64: a capacity that is a multiple of 64 and not of 128
+    ("bt64", 32, 192, 2048, 1024, 64, torch.bfloat16, 20),
     # ragged: experts 1, 2, 4 and 6 own no block; K and N past a tile
     ("ragged", 8, [0, 0, 3, 5, 5, 5, 7], 200, 328, 32, torch.bfloat16, 20),
+    # the same edges on the wgmma kernel (K 200 = 3 x 64 + 8, N 328 = 256
+    # + 72), and expert 5 owning eight consecutive blocks
+    ("ragged_bt128", 8, [0, 0, 3] + [5] * 8 + [7], 200, 328, 128,
+     torch.bfloat16, 20),
+    ("ragged_bt64", 8, [0, 0, 3] + [5] * 8 + [7], 200, 328, 64,
+     torch.bfloat16, 20),
     ("ragged_fp32", 8, [0, 0, 3, 5, 5, 5, 7], 200, 328, 32, torch.float32,
      20),
     ("qwen3_decode_fp32", 128, 8, 4096, 1536, 8, torch.float32, 10),
@@ -418,7 +446,8 @@ def phase_gmm(gen):
         err = diff.max().item()
         check(bool(torch.isfinite(o.float()).all()), f"gmm {name}: finite")
         rec = {"case": name, "shape": [t, k, n], "experts": e,
-               "block_t": bt, "dtype": str(dt), "max_abs_err": err,
+               "block_t": bt, "dtype": str(dt),
+               "kernel": mg.kernel_for(dt, bt), "max_abs_err": err,
                "max_abs_out": o_p.float().abs().max().item()}
         if dt == torch.float32 and k >= GMM_FP32_K_SCALED:
             # Both sides sum K products in float32, in other orders: each
@@ -453,8 +482,40 @@ def phase_gmm(gen):
         log("kernel", {"name": "moe_gmm", **rec})
         del x, w, o, o_p, diff
         torch.cuda.empty_cache()
+    gmm_bad_ids(gen)
     return {**records["qwen3_prefill"],
             "shapes": [r for n, r in records.items() if n != "qwen3_prefill"]}
+
+
+def gmm_bad_ids(gen):
+    """An id outside [0, E) gives NaN rows on every kernel; the other rows
+    of the same call match the plain version."""
+    from repro_torch.kernels import moe_gmm as mg
+    e, k, n = 8, 200, 328
+    ids = torch.tensor([0, -1, 3, 8, 3, 100, 7], dtype=torch.int32,
+                       device="cuda")
+    bad = (ids < 0) | (ids >= e)
+    for bt, dt in ((128, torch.bfloat16), (64, torch.bfloat16),
+                   (32, torch.bfloat16), (8, torch.float32)):
+        x = torch.randn(ids.numel() * bt, k, device="cuda",
+                        generator=gen).to(dt)
+        w = (torch.randn(e, k, n, device="cuda", generator=gen)
+             * k ** -0.5).to(dt)
+        o = mg.moe_gmm(x, w, ids, block_t=bt).view(-1, bt, n)
+        o_p = mg.moe_gmm_plain(x.view(-1, bt, k)[~bad].reshape(-1, k), w,
+                               ids[~bad], bt).view(-1, bt, n)
+        torch.cuda.synchronize()
+        kernel = mg.kernel_for(dt, bt)
+        check(bool(torch.isnan(o[bad].float()).all()),
+              f"gmm {kernel} block_t {bt}: NaN rows for ids outside [0, E)")
+        tol = GMM_TOL[dt]
+        check(torch.allclose(o[~bad].float(), o_p.float(), rtol=tol,
+                             atol=tol),
+              f"gmm {kernel} block_t {bt}: the valid blocks of a call with "
+              f"bad ids match the plain version")
+    log("kernel", f"moe_gmm: ids {ids.tolist()} of E={e} give NaN rows at "
+        "block_t 128, 64 (wgmma), 32 (mma.sync) and 8 (FMA, fp32); the "
+        "valid blocks match the plain version")
 
 
 # ---------------------------------------------------------------------------

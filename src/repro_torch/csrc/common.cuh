@@ -53,6 +53,12 @@ __device__ __forceinline__ uint4 pack(const float* f) {
   return u;
 }
 
+// Two floats rounded to one bf16 pair (lo in the low half), as 32 bits.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);

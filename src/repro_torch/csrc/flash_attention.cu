@@ -53,7 +53,6 @@
 // d <= 256 that is a multiple of 8 works: zeros past d add nothing to q.k
 // and give zero output columns, and stores stop at d.
 #include <cmath>
-#include <mutex>
 
 #include "common.cuh"
 #include "hopper.cuh"
@@ -308,11 +307,7 @@ fa_fwd_kernel(Args a) {
 // bfloat16: the online softmax on accumulator fragments
 // ---------------------------------------------------------------------------
 using bf16 = __nv_bfloat16;
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
+using repro::pack_bf16;
 
 // 2^x on the special-function unit; results below 2^-126 flush to 0.
 __device__ __forceinline__ float ex2(float x) {
@@ -635,71 +630,21 @@ fa_wgmma_kernel(const __grid_constant__ Maps maps, Args a, int nb,
   }
 }
 
-// cuTensorMapEncodeTiled, looked up in the libcuda the runtime has loaded
-// (so this library links none of its own).
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = [] {
-    void* f = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &q);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f,
-                                                  cudaEnableDefault, &q);
-#endif
-    return e == cudaSuccess && q == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(f)
-               : nullptr;
-  }();
-  return fn;
-}
-
 // A (B*H, S, d) bf16 tensor as boxes of 64 columns x ``rows`` rows, read
 // with the 128-byte swizzle; rows past S and columns past d read zeros.
 bool encode_map(CUtensorMap* map, const void* ptr, int bh, int s, int d,
                 int rows) {
-  const EncodeTiled fn = encode_tiled();
-  if (!fn) return false;
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(d),
                               static_cast<cuuint64_t>(s),
                               static_cast<cuuint64_t>(bh)};
   const cuuint64_t strides[2] = {static_cast<cuuint64_t>(d) * 2,
                                  static_cast<cuuint64_t>(s) * d * 2};
   const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(rows), 1};
-  const cuuint32_t unit[3] = {1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr),
-            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return repro::encode_bf16_map(map, ptr, 3, dims, strides, box);
 }
 
-// Runs setup() once per device in this process and returns what it
-// returned then: the host work of a launch that does not depend on the
-// call's pointers or shapes.  Each instantiation of a caller that passes
-// its own lambda gets its own flags.
-constexpr int kMaxDevices = 64;
-
-template <typename F>
-int once_per_device(int dev, F setup) {
-  static std::once_flag once[kMaxDevices];
-  static int result[kMaxDevices];
-  std::call_once(once[dev], [&] { result[dev] = setup(); });
-  return result[dev];
-}
-
-int current_device(int* dev) {
-  const cudaError_t err = cudaGetDevice(dev);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return *dev < kMaxDevices ? 0 : static_cast<int>(cudaErrorInvalidDevice);
-}
+using repro::current_device;
+using repro::once_per_device;
 
 template <int D, int N = D>
 int launch_wgmma(const Args& a, int b, cudaStream_t stream) {
@@ -722,13 +667,7 @@ int launch_wgmma(const Args& a, int b, cudaStream_t stream) {
         static_cast<int>(P::kSmemBytes)));
   });
   if (err) return err;
-  const int n_sm = once_per_device(dev, [dev] {
-    int n = 0;
-    return cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) ==
-                   cudaSuccess
-               ? n
-               : 0;
-  });
+  const int n_sm = repro::sm_count(dev);
   if (n_sm <= 0) return static_cast<int>(cudaErrorInvalidDevice);
   Maps maps;
   if (!encode_map(&maps.q, a.q, b * a.hq, a.s, a.d, 64) ||

@@ -2,36 +2,61 @@
 // where the rows of x are sorted by expert and cut into blocks of
 // ``block_t`` rows, each block owned by the one expert that
 // ``block_group_ids`` names.  fp32 accumulation, output in x's dtype.
+// An id outside [0, E) gives NaN rows.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/moe_gmm.py::moe_gmm
 // (_gmm_kernel).  The Pallas kernel walks a grid (T/bt, N/bn, K/bk) in
 // order, carries the sum over K in VMEM scratch from one grid step to
 // the next and picks each step's weight block by a scalar-prefetched
-// expert id.  Here one block of threads owns a whole (block_t x BN)
-// output tile: it reads its expert id once, loops over K itself with the
-// sum in registers, and stores the tile once.  block_t is the block's row
-// tile (a template parameter), so no tile ever straddles two experts, and
-// an expert that owns no row block is never read.
+// expert id.  Here a block of threads owns whole (rows x BN) output
+// tiles: it reads the tile's expert id itself, loops over K with the sum
+// in registers, and stores the tile once.  A tile never straddles two
+// row blocks, so it never straddles two experts, and an expert that owns
+// no row block is never read.
 //
 // Bound: operations at the prefill shapes (Qwen3-MoE: 81,920 rows x 4096
 // x 1536, ~1 TFLOP a launch against 1.6 GB of weights), bytes at decode
 // (1,024 rows: every expert's weights are read for 8 rows each).
 //
-// bfloat16 runs on the tensor cores through warp-level mma.sync
-// (m16n8k16, fp32 accumulators): 128 threads, a (block_t x 128) tile,
-// four stages of 32-deep K slices brought into shared memory by cp.async
-// (16-byte copies, zero-filled past K and N), fragments read with
-// ldmatrix (the weight slice transposed on the way).  Rows are padded by
-// 16 bytes so ldmatrix's eight row reads fall in distinct banks.  float32
-// runs on the FMA pipes (a 16 x 64 thread grid of register tiles), so
-// fp32 products stay in fp32: no TF32.  wgmma, TMA and a persistent
-// scheduler are later work.
-//
-// The tile index runs columns fastest: the blocks in flight share one row
-// block of x (read from device memory once) and the few experts whose
-// weights they read stay in the 50 MB L2 across those experts' row
-// blocks.
+// Which kernel a call reaches (the wrapper, kernels/moe_gmm.py::
+// kernel_for, picks it and passes its code):
+// - bfloat16, block_t 64 or 128 (prefill): gmm_wgmma_kernel, on what
+//   Hopper adds for the tensor cores.  A persistent grid of one block of
+//   three warpgroups per SM walks the output tiles (BT x 256).  One thread
+//   of the producer warpgroup reads each tile's expert id and keeps TMA
+//   loads in flight through a ring of stages of 64-deep K: a (64 x BT) box
+//   of x from a 2D map over (K, T), and four (64 x 64) boxes of the
+//   expert's weight from a 3D map over w's (N, K, E), the expert picked by
+//   the third coordinate.  Both arrive 128-byte swizzled; K and N past
+//   their ends arrive as zeros, so ragged K and N need no masked load.
+//   The two consumer warpgroups run wgmma m64nNk16 from shared memory (x
+//   K-major, the weight MN-major as it lies in w) into fp32 registers:
+//   at block_t 128 each owns 64 rows of the tile, at 64 each owns half
+//   of its columns.  setmaxnreg moves registers from the producer (40) to
+//   the consumers (232).  The epilogue rounds to bf16 into shared memory
+//   and one thread per warpgroup stores it with TMA, so the write of one
+//   tile runs under the products of the next, whose first stages the
+//   producer has already loaded.  The tiles are walked a group of row
+//   blocks at a time, row blocks fastest within the group, so the blocks
+//   in flight share a few experts' weights in L2; the launch sizes the
+//   group from the number of column tiles (1: columns fastest).
+// - bfloat16, block_t 8, 16 or 32 (decode): gmm_mma_kernel, warp-level
+//   mma.sync (m16n8k16, fp32 accumulators): 128 threads, a (block_t x
+//   128) tile, four stages of 32-deep K slices brought into shared memory
+//   by cp.async (16-byte copies, zero-filled past K and N), fragments
+//   read with ldmatrix (the weight slice transposed on the way).  Rows
+//   are padded by 16 bytes so ldmatrix's eight row reads fall in distinct
+//   banks.  Decode reads every expert's weights for a few rows, so it is
+//   bound by bytes and a wgmma kernel could read no fewer.
+// - float32, any block_t: gmm_fma_kernel on the FMA pipes (a 16 x 64
+//   thread grid of register tiles), so fp32 products stay in fp32: no
+//   TF32.
+// The smaller kernels index tiles columns fastest: the blocks in flight
+// share one row block of x and the few experts whose weights they read.
+#include <climits>
+
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -243,6 +268,213 @@ gmm_mma_kernel(const __nv_bfloat16* __restrict__ x,
 }
 
 // ---------------------------------------------------------------------------
+// bfloat16 prefill: wgmma + TMA
+// ---------------------------------------------------------------------------
+using bf16 = __nv_bfloat16;
+using repro::pack_bf16;
+
+// A tile of BT rows (one row block) x BN columns.  Two consumer
+// warpgroups each own a 64 x kWgN part of it; a stage holds 64-deep K
+// slices of x (BT x 64) and of the expert's weight (64 x BN), and the
+// finished tile leaves through a bf16 copy in shared memory (kCBytes) as
+// 64 x 64 boxes.
+template <int BT, int BN>
+struct WgTile {
+  static_assert(BT == 64 || BT == 128, "row tiles of one or two wgmma rows");
+  static_assert(BN % 64 == 0, "64-column weight slabs");
+  static constexpr int kBK = 64;                     // one 128-byte row
+  static constexpr int kSlabs = BN / 64;
+  static constexpr int kWgN = BT == 128 ? BN : BN / 2;
+  static constexpr int kABytes = BT * kBK * 2;
+  static constexpr int kBBytes = kBK * BN * 2;
+  static constexpr int kStageBytes = kABytes + kBBytes;
+  static constexpr int kCBytes = BT * BN * 2;
+  // as many stages as the 227 KB a block may use holds beside the rest
+  static constexpr int kStages =
+      (232448 - 1024 - kCBytes - 256) / kStageBytes;
+  static constexpr int kThreads = 3 * 128;
+  // setmaxnreg: what the producer warpgroup keeps and the consumers take;
+  // the block's pool (168 a thread at 384 threads) holds exactly both
+  static constexpr int kProducerRegs = 40;
+  static constexpr int kConsumerRegs = 232;
+  static constexpr size_t kSmemBytes = 1024 +
+      static_cast<size_t>(kStages) * kStageBytes + kCBytes + 2 * kStages * 8;
+};
+
+struct GmmMaps {
+  CUtensorMap x;     // (K, T) bf16, boxes of 64 x BT
+  CUtensorMap w;     // (N, K, E) bf16, boxes of 64 x 64 x 1
+  CUtensorMap out;   // (N, T) bf16, boxes of 64 x 64
+};
+
+struct GmmShape {
+  int t_blocks;     // row blocks (T / BT)
+  int n_tiles;      // column tiles (N / BN, rounded up)
+  int k_steps;      // 64-deep K slices (K / 64, rounded up)
+  int n, e;
+  int tile_group;   // row blocks walked together
+};
+
+// Output tile i -> (row block, column tile): groups of ``tile_group`` row
+// blocks; within a group the column tile, then the row block fastest.
+__device__ __forceinline__ void gmm_tile(int i, const GmmShape& g, int& rb,
+                                         int& nt) {
+  const int per = g.tile_group * g.n_tiles;
+  const int rb0 = (i / per) * g.tile_group, r = i % per;
+  const int size = min(g.tile_group, g.t_blocks - rb0);
+  nt = r / size;
+  rb = rb0 + r % size;
+}
+
+template <int BT, int BN>
+__global__ void __launch_bounds__(WgTile<BT, BN>::kThreads, 1)
+gmm_wgmma_kernel(const __grid_constant__ GmmMaps maps,
+                 const int* __restrict__ gids, bf16* __restrict__ out,
+                 GmmShape g) {
+  using P = WgTile<BT, BN>;
+  constexpr int kSt = P::kStages;
+  extern __shared__ unsigned char smem_raw[];
+  // 128-byte swizzled tiles want 1024-byte aligned atoms
+  unsigned char* base =
+      smem_raw + ((1024 - (repro::smem_u32(smem_raw) & 1023)) & 1023);
+  bf16* As = reinterpret_cast<bf16*>(base);
+  bf16* Bs = reinterpret_cast<bf16*>(base + kSt * P::kABytes);
+  bf16* Cs = reinterpret_cast<bf16*>(base + kSt * P::kStageBytes);
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + kSt * P::kStageBytes +
+                                               P::kCBytes);
+  uint64_t* empty = full + kSt;
+  const int n_tiles = g.t_blocks * g.n_tiles;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kSt; ++i) {
+      repro::mbar_init(full + i, 1);
+      repro::mbar_init(empty + i, 256);
+    }
+    repro::mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    // producer: registers go to the consumers; one thread issues the loads
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
+        P::kProducerRegs));
+    if (threadIdx.x == 256) {
+      int it = 0;   // stages issued so far: ring slot and round
+      for (int i = blockIdx.x; i < n_tiles; i += gridDim.x) {
+        int rb, nt;
+        gmm_tile(i, g, rb, nt);
+        const int e = gids[rb];
+        if (e < 0 || e >= g.e) continue;   // NaN rows: nothing to load
+        for (int kt = 0; kt < g.k_steps; ++kt, ++it) {
+          const int st = it % kSt, round = it / kSt;
+          if (round > 0) repro::mbar_wait(empty + st, (round - 1) & 1);
+          // boxes past K or N count in full: TMA writes their zeros
+          repro::mbar_expect_tx(full + st, P::kStageBytes);
+          repro::tma_load_2d(As + st * (P::kABytes / 2), &maps.x, full + st,
+                             kt * P::kBK, rb * BT);
+          for (int c = 0; c < P::kSlabs; ++c)
+            repro::tma_load_3d(Bs + st * (P::kBBytes / 2) + c * 64 * 64,
+                               &maps.w, full + st, nt * BN + c * 64,
+                               kt * P::kBK, e);
+        }
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
+        P::kConsumerRegs));
+    // consumers: warpgroup wg owns rows 64 wg .. +63 of a 128-row tile, or
+    // columns kWgN wg .. +kWgN-1 of a 64-row tile
+    const int lane = threadIdx.x % 32, warp = (threadIdx.x / 32) % 4;
+    const int gq = lane / 4, t = lane % 4;
+    const int a_row = BT == 128 ? 64 * wg : 0;
+    const int b_col = BT == 128 ? 0 : P::kWgN * wg;
+    bf16* Cw = Cs + wg * 64 * P::kWgN;   // this warpgroup's 64-column slabs
+    const bool storer = threadIdx.x % 128 == 0;
+    int it = 0;
+    for (int i = blockIdx.x; i < n_tiles; i += gridDim.x) {
+      int rb, nt;
+      gmm_tile(i, g, rb, nt);
+      const int e = gids[rb];
+      // this lane's rows: row and row + 8; its columns col0 + 8 j + 2 t, +1
+      const long long row =
+          static_cast<long long>(rb) * BT + a_row + warp * 16 + gq;
+      const int col0 = nt * BN + b_col;
+      if (e < 0 || e >= g.e) {
+        // an id outside [0, E): NaN rows, so any check of the output sees it
+        const uint32_t nan2 = pack_bf16(nan_f(), nan_f());
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+          for (int j = 0; j < P::kWgN / 8; ++j) {
+            const int col = col0 + 8 * j + 2 * t;
+            if (col < g.n)
+              *reinterpret_cast<uint32_t*>(out + (row + 8 * r) * g.n + col) =
+                  nan2;
+          }
+        continue;
+      }
+
+      float acc[P::kWgN / 2];
+#pragma unroll
+      for (int j = 0; j < P::kWgN / 2; ++j) acc[j] = 0.f;
+      for (int kt = 0; kt < g.k_steps; ++kt, ++it) {
+        const int st = it % kSt;
+        const bf16* At = As + st * (P::kABytes / 2) + a_row * 64;
+        const bf16* Bt = Bs + st * (P::kBBytes / 2) + b_col * 64;
+        repro::mbar_wait(full + st, (it / kSt) & 1);
+        // x K-major: 16-deep steps 32 B apart in a row; the weight
+        // MN-major: 16-row steps 2048 B apart, 8-row groups 1024 B apart,
+        // 64-column slabs 8192 B apart
+        repro::wgmma_fence();
+#pragma unroll
+        for (int kq = 0; kq < P::kBK / 16; ++kq)
+          repro::wgmma_ss_mn<P::kWgN>(
+              acc, repro::wgmma_desc(At + kq * 16, 16, 1024),
+              repro::wgmma_desc(Bt + kq * 16 * 64, 64 * 128, 1024), 1);
+        repro::wgmma_commit();
+        // the stage before this one is read: give it back to the producer
+        repro::wgmma_wait<1>();
+        if (kt > 0) repro::mbar_arrive(empty + (it - 1) % kSt);
+      }
+      repro::wgmma_wait<0>();
+#pragma unroll
+      for (int j = 0; j < P::kWgN / 2; ++j) repro::fence_reg(acc[j]);
+      if (g.k_steps > 0) repro::mbar_arrive(empty + (it - 1) % kSt);
+
+      // epilogue: bf16 into this warpgroup's slabs, 128-byte swizzled as
+      // the out map reads them (a warp's 8 rows x 4 lanes hit 32 banks),
+      // once the previous tile's stores have read them; then one thread
+      // stores the slabs with TMA and the next tile starts while they go
+      if (storer) repro::bulk_wait_read<0>();
+      repro::named_barrier(1 + wg, 128);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int rr = warp * 16 + gq + 8 * r;   // row in the slab; % 8 = gq
+#pragma unroll
+        for (int j = 0; j < P::kWgN / 8; ++j) {
+          unsigned char* slab =
+              reinterpret_cast<unsigned char*>(Cw + (j / 8) * 64 * 64);
+          *reinterpret_cast<uint32_t*>(slab + rr * 128 +
+                                       (((j % 8) ^ gq) << 4) + 4 * t) =
+              pack_bf16(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
+        }
+      }
+      repro::fence_proxy_async();
+      repro::named_barrier(1 + wg, 128);
+      if (storer) {
+        const int row0 = rb * BT + a_row;
+        for (int c = 0; c < P::kWgN / 64; ++c)
+          if (col0 + 64 * c < g.n)   // the map drops columns past N
+            repro::tma_store_2d(&maps.out, Cw + c * 64 * 64, col0 + 64 * c,
+                                row0);
+        repro::bulk_commit();
+      }
+    }
+    if (storer) repro::bulk_wait<0>();
+  }
+}
+
+// ---------------------------------------------------------------------------
 // float32: FMA pipes
 // ---------------------------------------------------------------------------
 template <int BT>
@@ -337,11 +569,7 @@ template <int BT>
 int launch_mma(const void* x, const void* w, const int* gids, void* out,
                long long n_blocks, int k, int n, int e, cudaStream_t s) {
   using P = MmaTile<BT>;
-  // above 48 KB only after an opt-in, which is per device: set it always
-  const cudaError_t err = cudaFuncSetAttribute(
-      gmm_mma_kernel<BT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      P::kSmemBytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  static_assert(P::kSmemBytes <= 48 * 1024, "no shared-memory opt-in needed");
   const int n_tiles = (n + P::kBN - 1) / P::kBN;
   gmm_mma_kernel<BT><<<static_cast<unsigned>(n_blocks * n_tiles), kThreads,
                        P::kSmemBytes, s>>>(
@@ -362,36 +590,119 @@ int launch_fma(const void* x, const void* w, const int* gids, void* out,
   return static_cast<int>(cudaGetLastError());
 }
 
+// x (T, K) and w (E, K, N) as tensor maps; a persistent grid of one
+// block per SM.  The attribute query, the register-pool check, the
+// shared-memory opt-in and the SM count run once per device; only the
+// maps are encoded per call.
 template <int BT>
-int launch(const void* x, const void* w, const int* gids, void* out,
-           long long n_blocks, int k, int n, int e, int dtype,
-           cudaStream_t s) {
-  if (dtype == repro::kBFloat16)
-    return launch_mma<BT>(x, w, gids, out, n_blocks, k, n, e, s);
-  if (dtype == repro::kFloat32)
-    return launch_fma<BT>(x, w, gids, out, n_blocks, k, n, e, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+int launch_wgmma(const void* x, const void* w, const int* gids, void* out,
+                 long long n_blocks, int k, int n, int e, cudaStream_t s) {
+  constexpr int BN = 256;
+  using P = WgTile<BT, BN>;
+  int dev = 0;
+  int err = repro::current_device(&dev);
+  if (err) return err;
+  err = repro::once_per_device(dev, [] {
+    // a pool smaller than setmaxnreg asks for would stall the consumers
+    // for ever: refuse the launch instead
+    cudaFuncAttributes attr;
+    cudaError_t e = cudaFuncGetAttributes(&attr, gmm_wgmma_kernel<BT, BN>);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    if (attr.numRegs * P::kThreads <
+        128 * P::kProducerRegs + 256 * P::kConsumerRegs) {
+      return static_cast<int>(cudaErrorInvalidConfiguration);
+    }
+    return static_cast<int>(cudaFuncSetAttribute(
+        gmm_wgmma_kernel<BT, BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(P::kSmemBytes)));
+  });
+  if (err) return err;
+  const int n_sm = repro::sm_count(dev);
+  if (n_sm <= 0) return static_cast<int>(cudaErrorInvalidDevice);
+  const int col_tiles = (n + BN - 1) / BN;
+  const long long n_tiles = n_blocks * col_tiles;
+  if (n_blocks * BT > INT_MAX || n_tiles > INT_MAX) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  // an empty x or w (K or E 0) has no map: its encoding fails, and the
+  // launch is refused
+  const cuuint64_t x_dims[2] = {static_cast<cuuint64_t>(k),
+                                static_cast<cuuint64_t>(n_blocks) * BT};
+  const cuuint64_t x_strides[1] = {static_cast<cuuint64_t>(k) * 2};
+  const cuuint32_t x_box[2] = {64, BT};
+  const cuuint64_t w_dims[3] = {static_cast<cuuint64_t>(n),
+                                static_cast<cuuint64_t>(k),
+                                static_cast<cuuint64_t>(e)};
+  const cuuint64_t w_strides[2] = {static_cast<cuuint64_t>(n) * 2,
+                                   static_cast<cuuint64_t>(n) * k * 2};
+  const cuuint32_t w_box[3] = {64, 64, 1};
+  const cuuint64_t o_dims[2] = {static_cast<cuuint64_t>(n), x_dims[1]};
+  const cuuint64_t o_strides[1] = {static_cast<cuuint64_t>(n) * 2};
+  const cuuint32_t o_box[2] = {64, 64};
+  GmmMaps maps;
+  if (!repro::encode_bf16_map(&maps.x, x, 2, x_dims, x_strides, x_box) ||
+      !repro::encode_bf16_map(&maps.w, w, 3, w_dims, w_strides, w_box) ||
+      !repro::encode_bf16_map(&maps.out, out, 2, o_dims, o_strides, o_box)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  // walk the columns of a row block fastest when it has few column tiles
+  // (the tiles in flight then hold whole row blocks, and each block's x
+  // rows are read once); when it has many (wide N), walking them first
+  // would stream an expert's whole weight for every row block, so 16 row
+  // blocks go together (~sqrt(132 x BN / BT): the group that balances the
+  // x and weight bytes of the tiles in flight)
+  const int tile_group = col_tiles > 8 ? 16 : 1;
+  const GmmShape g{static_cast<int>(n_blocks), col_tiles,
+                   (k + P::kBK - 1) / P::kBK, n, e, tile_group};
+  const int grid = static_cast<int>(n_tiles < n_sm ? n_tiles : n_sm);
+  gmm_wgmma_kernel<BT, BN><<<grid, P::kThreads, P::kSmemBytes, s>>>(
+      maps, gids, static_cast<bf16*>(out), g);
+  return static_cast<int>(cudaGetLastError());
 }
+
+enum Kernel : int { kFma = 0, kMma = 1, kWgmma = 2 };
 
 }  // namespace
 
 // x: (T, K); w: (E, K, N); gids: (T / block_t,) int32; out: (T, N); all
-// contiguous, x, w and out 16-byte aligned, K and N multiples of 8,
-// block_t one of 8, 16, 32, 64, 128 (checked by the Python wrapper).
+// contiguous, x, w and out 16-byte aligned, K and N multiples of 8.
+// ``kernel`` names the kernel (the wrapper's kernel_for): 0 FMA (float32,
+// block_t 8 .. 128), 1 mma.sync (bfloat16, block_t 8, 16, 32), 2 wgmma +
+// TMA (bfloat16, block_t 64, 128); any other pair is refused.
 // Returns cudaGetLastError().
 extern "C" int moe_gmm_fwd(const void* x, const void* w, const void* gids,
                            void* out, long long t, int k, int n, int e,
-                           int block_t, int dtype, void* stream) {
+                           int block_t, int kernel, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* g = static_cast<const int*>(gids);
   if (t == 0 || n == 0) return static_cast<int>(cudaGetLastError());
   const long long nb = t / block_t;
-  switch (block_t) {
-    case 8: return launch<8>(x, w, g, out, nb, k, n, e, dtype, s);
-    case 16: return launch<16>(x, w, g, out, nb, k, n, e, dtype, s);
-    case 32: return launch<32>(x, w, g, out, nb, k, n, e, dtype, s);
-    case 64: return launch<64>(x, w, g, out, nb, k, n, e, dtype, s);
-    case 128: return launch<128>(x, w, g, out, nb, k, n, e, dtype, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+  const int bad = static_cast<int>(cudaErrorInvalidValue);
+  switch (kernel) {
+    case kFma:
+      switch (block_t) {
+        case 8: return launch_fma<8>(x, w, g, out, nb, k, n, e, s);
+        case 16: return launch_fma<16>(x, w, g, out, nb, k, n, e, s);
+        case 32: return launch_fma<32>(x, w, g, out, nb, k, n, e, s);
+        case 64: return launch_fma<64>(x, w, g, out, nb, k, n, e, s);
+        case 128: return launch_fma<128>(x, w, g, out, nb, k, n, e, s);
+        default: return bad;
+      }
+    case kMma:
+      switch (block_t) {
+        case 8: return launch_mma<8>(x, w, g, out, nb, k, n, e, s);
+        case 16: return launch_mma<16>(x, w, g, out, nb, k, n, e, s);
+        case 32: return launch_mma<32>(x, w, g, out, nb, k, n, e, s);
+        default: return bad;
+      }
+    case kWgmma:
+      switch (block_t) {
+        case 64:
+          return launch_wgmma<64>(x, w, g, out, nb, k, n, e, s);
+        case 128:
+          return launch_wgmma<128>(x, w, g, out, nb, k, n, e, s);
+        default: return bad;
+      }
+    default: return bad;
   }
 }

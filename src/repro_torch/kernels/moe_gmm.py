@@ -7,9 +7,9 @@ holds tokens sorted by expert and padded so that every block of
 ``block_t`` rows belongs to one expert, ``block_group_ids`` (T / block_t,)
 int32 names it, and w (E, K, N) holds the experts' weights.  The result
 (T, N) is summed in float32 and returned in x's dtype.  ``moe_gmm``
-launches the kernel on CUDA tensors only; ``moe_gmm_plain`` is the same
-function in plain PyTorch, which the CPU path and the comparisons on the
-card use.
+launches a kernel on CUDA tensors only, the one ``kernel_for`` names;
+``moe_gmm_plain`` is the same function in plain PyTorch, which the CPU
+path and the comparisons on the card use.
 """
 from __future__ import annotations
 
@@ -20,8 +20,10 @@ import torch
 
 from repro_torch.kernels import _build
 
-DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-BLOCK_TS = (128, 64, 32, 16, 8)   # the kernel's row tiles, largest first
+DTYPES = (torch.float32, torch.bfloat16)
+BLOCK_TS = (128, 64, 32, 16, 8)   # the kernels' row tiles, largest first
+# The kernels of csrc/moe_gmm.cu, by the code its C entry takes.
+KERNEL_CODES = {"fma": 0, "mma": 1, "wgmma": 2}
 
 # Times moe_gmm has launched its kernel in this process.
 launches = 0
@@ -43,7 +45,7 @@ def check_args(x, w, block_group_ids, block_t: int) -> None:
     takes: x (T, K), w (E, K, N) of one dtype (float32 or bfloat16),
     block_group_ids (T / block_t,) int32, block_t in BLOCK_TS, K and N
     multiples of 8 (the kernel's 16-byte copies)."""
-    if x.dtype not in DTYPE_CODES or w.dtype != x.dtype:
+    if x.dtype not in DTYPES or w.dtype != x.dtype:
         raise TypeError(f"moe_gmm takes float32 or bfloat16 x and w of one "
                         f"dtype, got {x.dtype} and {w.dtype}")
     if block_group_ids.dtype != torch.int32:
@@ -64,6 +66,19 @@ def check_args(x, w, block_group_ids, block_t: int) -> None:
         raise ValueError(f"K and N must be multiples of 8, got K={k}, N={n}")
 
 
+def kernel_for(dtype, block_t: int) -> str:
+    """The kernel a CUDA call of (dtype, block_t) launches: bfloat16 row
+    tiles of 64 and 128 (prefill) on wgmma + TMA, smaller bfloat16 tiles
+    (decode) on mma.sync, float32 on the FMA pipes."""
+    if block_t not in BLOCK_TS:
+        raise ValueError(f"block_t must be one of {BLOCK_TS}, got {block_t}")
+    if dtype == torch.bfloat16:
+        return "wgmma" if block_t >= 64 else "mma"
+    if dtype == torch.float32:
+        return "fma"
+    raise TypeError(f"moe_gmm takes float32 or bfloat16, got {dtype}")
+
+
 @functools.cache
 def _fn():
     fn = _build.load("moe_gmm").moe_gmm_fwd
@@ -74,15 +89,16 @@ def _fn():
 
 
 def moe_gmm(x, w, block_group_ids, *, block_t: int):
-    """Launch the kernel on contiguous CUDA tensors of one device (see
-    ``check_args``; x, w 16-byte aligned).  Ids outside [0, E) give NaN
-    rows."""
+    """Launch the kernel ``kernel_for`` names on contiguous CUDA tensors of
+    one device (see ``check_args``; x, w 16-byte aligned).  Ids outside
+    [0, E) give NaN rows."""
     global launches
     ts = (x, w, block_group_ids)
     if not all(t.is_cuda and t.device == x.device for t in ts):
         raise ValueError("moe_gmm takes x, w, block_group_ids on one CUDA "
                          "device")
     check_args(x, w, block_group_ids, block_t)
+    kernel = KERNEL_CODES[kernel_for(x.dtype, block_t)]
     if not (all(t.is_contiguous() for t in ts)
             and x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0):
         raise ValueError("moe_gmm takes contiguous inputs, x and w 16-byte "
@@ -94,7 +110,7 @@ def moe_gmm(x, w, block_group_ids, *, block_t: int):
     fn = _fn()
     with torch.cuda.device(x.device):
         err = fn(x.data_ptr(), w.data_ptr(), block_group_ids.data_ptr(),
-                 out.data_ptr(), t, k, n, e, block_t, DTYPE_CODES[x.dtype],
+                 out.data_ptr(), t, k, n, e, block_t, kernel,
                  torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"moe_gmm kernel launch failed: CUDA error {err}")

@@ -11,6 +11,8 @@ routing must pick the same experts, token for token, before the outputs
 are compared at 1e-4.
 """
 import dataclasses
+import pathlib
+import re
 
 import jax
 import jax.numpy as jnp
@@ -28,6 +30,7 @@ from repro_torch.configs import get_config as torch_get_config
 from repro_torch.kernels import moe_gmm as port_gmm
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as port_ref
+from repro_torch.launch import gmm_variants
 from repro_torch.models import moe as port_moe
 
 DTYPES = {"float32": (np.float32, torch.float32, jnp.float32),
@@ -71,17 +74,31 @@ GMM_CASES = [
     ([1, 0, 0, 2, 0], 32),    # and last
     ([3], 32),
     ([1, 1, 1, 1, 1, 1, 0, 1], 8),
+    # the row tiles of the wgmma kernel (bf16 on the card)
+    ([1, 0, 2], 128),
+    ([0, 3, 1, 0], 128),      # one expert owning consecutive blocks
+    ([2, 0, 0, 3, 1], 64),
+    ([0, 1, 4], 64),
 ]
+
+
+def _gmm_dims(bt):
+    """(K, N, Pallas block_k, block_n) of a GMM_CASES entry: 64 x 96 at the
+    small row tiles; at 64 and 128, K 200 and N 328, past a 64-deep K step
+    and a 256-wide column tile of the wgmma kernel.  The Pallas blocks
+    divide K and N and keep the interpret-mode grid small."""
+    return (64, 96, 32, 32) if bt <= 32 else (200, 328, 40, 164)
 
 
 @pytest.mark.parametrize("counts,bt", GMM_CASES)
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 def test_gmm_plain_vs_pallas_and_ref(counts, bt, dtype):
     np_dt, t_dt, j_dt = DTYPES[dtype]
-    x, w, gids, sizes = _gmm_inputs(counts, bt, 64, 96, np_dt)
+    k, n, block_k, block_n = _gmm_dims(bt)
+    x, w, gids, sizes = _gmm_inputs(counts, bt, k, n, np_dt)
     o_pl = pallas_moe_gmm(jnp.asarray(x, j_dt), jnp.asarray(w, j_dt),
-                          jnp.asarray(gids), block_t=bt, block_n=32,
-                          block_k=32, interpret=True)
+                          jnp.asarray(gids), block_t=bt, block_n=block_n,
+                          block_k=block_k, interpret=True)
     o_ref = jax_ref.moe_gmm_ref(jnp.asarray(x, j_dt), jnp.asarray(w, j_dt),
                                 sizes)
     xt = torch.from_numpy(np.asarray(x, np.float32)).to(t_dt)
@@ -127,6 +144,49 @@ def test_gmm_refuses_what_the_kernel_does_not_take(bad, match):
     gids = torch.tensor([0, 1], dtype=bad.get("gid_dtype", torch.int32))
     with pytest.raises((ValueError, TypeError), match=match):
         ops.moe_gmm(x, w, gids, block_t=bad.get("block_t", 8))
+
+
+@pytest.mark.parametrize("dtype,bt,kernel", [
+    (torch.bfloat16, 128, "wgmma"), (torch.bfloat16, 64, "wgmma"),
+    (torch.bfloat16, 32, "mma"), (torch.bfloat16, 16, "mma"),
+    (torch.bfloat16, 8, "mma"),
+    (torch.float32, 128, "fma"), (torch.float32, 64, "fma"),
+    (torch.float32, 32, "fma"), (torch.float32, 16, "fma"),
+    (torch.float32, 8, "fma"),
+])
+def test_gmm_kernel_for_each_call(dtype, bt, kernel):
+    """bf16 prefill tiles reach wgmma + TMA, bf16 decode tiles mma.sync,
+    float32 the FMA kernel; the code passed for it is the C entry's."""
+    assert port_gmm.kernel_for(dtype, bt) == kernel
+    assert kernel in port_gmm.KERNEL_CODES
+
+
+@pytest.mark.parametrize("dtype,bt,err", [
+    (torch.float16, 128, TypeError), (torch.bfloat16, 24, ValueError),
+])
+def test_gmm_kernel_for_refuses_the_rest(dtype, bt, err):
+    with pytest.raises(err):
+        port_gmm.kernel_for(dtype, bt)
+
+
+def test_gmm_kernel_codes_match_the_c_entry():
+    """The wrapper's kernel codes are the enum the C entry switches on."""
+    src = (pathlib.Path(port_gmm.__file__).parents[1] / "csrc"
+           / "moe_gmm.cu").read_text()
+    enum = re.search(r"enum Kernel : int \{([^}]*)\}", src).group(1)
+    codes = {name.lower(): int(v) for name, v in
+             re.findall(r"k(\w+) = (\d+)", enum)}
+    assert codes == port_gmm.KERNEL_CODES
+
+
+@pytest.mark.parametrize("name", sorted(gmm_variants.VARIANTS))
+def test_gmm_variants_patch_the_kernel_source(name):
+    """Each timed variant of the wgmma kernel is the source with its text
+    replaced once (the probe refuses a patch that no longer applies)."""
+    src = gmm_variants.variant_source(gmm_variants.VARIANTS[name])
+    assert "gmm_wgmma_kernel" in src
+    for old, new in gmm_variants.VARIANTS[name]:
+        assert new in src and old not in src
 
 
 def test_gmm_cpu_launches_no_kernel_and_wrapper_refuses_cpu():
