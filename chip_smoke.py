@@ -7,9 +7,9 @@ Phases, in order; any failure raises and exits non-zero:
 
 1. build  - compile every CUDA kernel of the serving paths from
    ``src/repro_torch/csrc`` (one nvcc per source, all in parallel), and
-   report each flash and gmm instantiation's registers, spills and
-   tensor-core instructions; the gmm's wgmma kernels must not spill and
-   must hold HGMMA;
+   report each kernel instantiation's registers, spills and tensor-core
+   instructions; the gmm's wgmma kernels must not spill and must hold
+   HGMMA, the SSD's bf16 kernels must not spill and must hold HMMA;
 2. kernels - hold each kernel against its plain PyTorch version on the
    card at the serving paths' shapes, and time the kernel, the plain
    version and the one PyTorch call that computes the same function (the
@@ -91,6 +91,32 @@ def time_ms(fn, iters: int, warmup: int = 2, repeats: int = 3) -> float:
     return sorted(runs)[len(runs) // 2]
 
 
+def device_ms_by_kernel(fn, iters: int) -> dict:
+    """Mean device time of one call, by kernel: the kernels' own time under
+    torch.profiler over ``iters`` calls, without the host's gaps between
+    them (a small kernel's back-to-back calls wait on the host)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    names = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
+            m = re.search(r"(\w+_kernel)(<[^>]*>)?", e.key)
+            name = m.group(0) if m else e.key[:60]
+            names[name] = (names.get(name, 0.0)
+                           + e.self_device_time_total / 1e3 / iters)
+    return names
+
+
+def device_ms(fn, iters: int) -> float:
+    return sum(device_ms_by_kernel(fn, iters).values())
+
+
 def bound_ms(flops: float, nbytes: float, dtype) -> tuple:
     t_ops = flops / PEAK_FLOPS[dtype]
     t_bytes = nbytes / PEAK_BYTES_PER_S
@@ -121,7 +147,7 @@ def phase_build():
                 log("build", f"{name}: {line.strip()}")
     reports = {name: build_report(_build.BUILD_LOG[name]["log"],
                                   _build.BUILD_DIR / f"lib{name}.so")
-               for name in ("flash_attention", "moe_gmm")}
+               for name in sources}
     log("build", reports)
     # the gmm's wgmma kernels: on the tensor cores' wgmma path, no spill
     gmm = reports["moe_gmm"]
@@ -133,15 +159,31 @@ def phase_build():
               f"{name}: no spill ({gmm['ptxas'][name]})")
         check(counts.get(name, {}).get("HGMMA", 0) > 0,
               f"{name}: HGMMA in its SASS ({counts.get(name)})")
+    # the SSD's bf16 kernels: on the tensor cores (mma.sync), no spill
+    ssd = reports["ssd_scan"]
+    counts = ssd["sass"].get("tensor_core_instructions", {})
+    tc = sorted(k for k in ssd["ptxas"] if k.startswith(
+        ("chunk_state_kernel", "chunk_scan_kernel")))
+    check(len(tc) == 8, f"ssd_scan: 4 chunk-state and 4 chunk-scan "
+          f"instantiations, got {tc}")
+    for name in tc:
+        check(ssd["ptxas"][name].get("spills") == NO_SPILL,
+              f"{name}: no spill ({ssd['ptxas'][name]})")
+        check(counts.get(name, {}).get("HMMA", 0) > 0,
+              f"{name}: HMMA in its SASS ({counts.get(name)})")
 
 
 def _kernel_name(mangled: str) -> str:
     """``fa_wgmma_kernel<128, 112>`` from its mangled name."""
-    m = re.search(r"\d+([a-z_]+?_kernel)I(.*?)EE", mangled)
+    m = re.search(r"\d+([a-z_]+?_kernel)(?:I(.*?)EE)?", mangled)
     if not m:
         return mangled
-    args = ["float" if f else n for f, n in re.findall(r"(f)|Li(\d+)",
-                                                        m.group(2))]
+    if m.group(2) is None:
+        return m.group(1)
+    names = {"13__nv_bfloat16": "bf16", "f": "float", "Lb0": "false",
+             "Lb1": "true"}
+    args = [names.get(t, t[2:]) for t in re.findall(
+        r"13__nv_bfloat16|Lb[01]|Li\d+|f", m.group(2))]
     return f"{m.group(1)}<{', '.join(args)}>"
 
 
@@ -290,6 +332,20 @@ RMSNORM_CASES = [
     ("qwen3_q_norm", (SERVE_BATCH, SERVE_PROMPT, 64, 128), torch.bfloat16,
      0.0),
     ("qwen3_ln", (SERVE_BATCH * SERVE_PROMPT, 4096), torch.bfloat16, 0.0),
+    ("qwen3_k_norm", (SERVE_BATCH, SERVE_PROMPT, 4, 128), torch.bfloat16,
+     0.0),
+    # Zamba2-7B's d_model (14 vectors a lane) and its gate norm over
+    # d_inner = 7168 (28 vectors a lane), in prefill and in a decode step
+    ("zamba2_ln", (SERVE_BATCH * SERVE_PROMPT, 3584), torch.bfloat16, 0.0),
+    ("zamba2_gate_norm", (SERVE_BATCH * SERVE_PROMPT, 7168), torch.bfloat16,
+     0.0),
+    ("zamba2_gate_norm_decode", (SERVE_BATCH, 1, 7168), torch.bfloat16, 0.0),
+    # the kernel's other widths: a row of 8 vectors in the 16-lane kernel
+    # (the reduced configs' widths; lanes past the row masked), 32 vectors
+    # a lane in fp32 at 4096, and a row too wide for registers (two passes)
+    ("narrow_d64", (4096, 64), torch.bfloat16, 1.0),
+    ("fp32_4096", (1024, 4096), torch.float32, 0.0),
+    ("two_pass_d40960", (64, 40960), torch.bfloat16, 0.0),
 ]
 # one bf16 rounding of the output (2^-7 relative); fp32: order of sums
 RMSNORM_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-5}
@@ -317,8 +373,12 @@ def phase_rmsnorm(gen):
                                                     dt)
         rec["ms"] = time_ms(lambda: rn.rmsnorm(x, w, **kw), 50)
         rec["plain_ms"] = time_ms(lambda: rn.rmsnorm_plain(x, w, **kw), 20)
-        rec["library_ms"] = (time_ms(lambda: F.rms_norm(
-            x, (shape[-1],), w, eps=1e-6), 50) if off == 0.0 else None)
+        library = (lambda: F.rms_norm(x, (shape[-1],), w, eps=1e-6)) \
+            if off == 0.0 else None
+        rec["library_ms"] = time_ms(library, 50) if library else None
+        rec["device_ms"] = device_ms(lambda: rn.rmsnorm(x, w, **kw), 20)
+        rec["library_device_ms"] = device_ms(library, 20) if library \
+            else None
         records[name] = rec
         log("kernel", {"name": "rmsnorm", **rec})
     return {**records["prefill"],
@@ -336,8 +396,20 @@ SSD_CASES = [
     ("s_eq_chunk", 2, 128, 16, 64, 1, 64, 128, torch.float32),
     # the reduced configs (``--reduced``, chunk 8) on the card
     ("reduced", 2, 32, 16, 8, 1, 16, 8, torch.float32),
+    # bf16 (tensor cores): Mamba2's widths at batch 1, one chunk (no state
+    # kernels), the reduced configs (chunk 8 padded to 16 rows, N 16), a
+    # chunk of 100 (padded to 112), N 48 (padded to 64) with P 32, and P
+    # 128 (two 64-column blocks of y)
+    ("mamba2_bf16", 1, 1024, 48, 64, 1, 128, 128, torch.bfloat16),
+    ("s_eq_chunk_bf16", 2, 128, 16, 64, 1, 64, 128, torch.bfloat16),
+    ("reduced_bf16", 2, 32, 16, 8, 1, 16, 8, torch.bfloat16),
+    ("chunk100_bf16", 1, 300, 8, 64, 2, 64, 100, torch.bfloat16),
+    ("n48_p32_bf16", 1, 512, 8, 32, 1, 48, 128, torch.bfloat16),
+    ("p128_bf16", 1, 256, 4, 128, 1, 64, 64, torch.bfloat16),
+    # 17 chunks: the state passed over more chunks than any served shape
+    ("chunks17_bf16", 1, 1088, 8, 64, 1, 64, 64, torch.bfloat16),
 ]
-SSD_TIMED = ("zamba2", "mamba2_widths")
+SSD_TIMED = ("zamba2", "mamba2_widths", "mamba2_bf16")
 # bf16: one bf16 rounding of the output (2^-8 relative); fp32: the cumsum
 # of dt*A runs in another order (a warp scan), and at |L| ~ 1e3 its fp32
 # rounding moves exp(L_i - L_j) by ~1e-4 relative
@@ -380,14 +452,27 @@ def phase_ssd(gen):
             es = x.element_size()
             nbytes = (2 * x.numel() + bm.numel() + cm.numel()) * es \
                 + (dtv.numel() + a.numel()) * 4
-            rec["bound_ms"], rec["bound_by"] = bound_ms(
-                _ssd_flops(bb, s, h, p, n, chunk), nbytes, dt)
+            flops = _ssd_flops(bb, s, h, p, n, chunk)
+            rec["bound_ms"], rec["bound_by"] = bound_ms(flops, nbytes, dt)
+            # the bf16 kernels' workspace is written and read twice (S_c,
+            # then the carried states over them): the kernels' bytes, not
+            # the function's
+            ws = sk.workspace_bytes(x, bm, chunk=chunk)
+            rec["workspace_bytes"] = ws
+            rec["bound_with_workspace_ms"] = bound_ms(
+                flops, nbytes + 4 * ws, dt)[0]
             rec["ms"] = time_ms(lambda: sk.ssd_scan(x, dtv, a, bm, cm,
                                                     chunk=chunk), 10)
+            rec["tflops"] = flops / rec["ms"] / 1e9
+            rec["device_ms_by_kernel"] = device_ms_by_kernel(
+                lambda: sk.ssd_scan(x, dtv, a, bm, cm, chunk=chunk), 10)
             rec["plain_ms"] = time_ms(lambda: sk.ssd_plain(x, dtv, a, bm, cm,
                                                            chunk=chunk), 3)
             rec["library_ms"] = None   # no single PyTorch call computes SSD
-            rec["blocks"] = bb * h
+            # blocks of the (last) kernel: one per (b, h) in fp32, one per
+            # (b, h, chunk) in bf16
+            rec["blocks"] = bb * h * (s // chunk if dt == torch.bfloat16
+                                      else 1)
             timed[name] = rec
         log("kernel", {"name": "ssd_scan", **rec})
     return {**timed["zamba2"], "shapes": [timed[n] for n in SSD_TIMED[1:]]}
@@ -529,15 +614,19 @@ def _kernel_modules():
 
 def expected_launches(cfg) -> dict:
     """Kernel launches of one ``generate`` call of SERVE_GEN tokens: flash
-    in prefill once, rmsnorm and moe_gmm in prefill and every decode
-    step."""
+    and the SSD's kernels in prefill once, rmsnorm and moe_gmm in prefill
+    and every decode step."""
     if cfg.family == "hybrid":
         n_apps = cfg.n_layers // cfg.hybrid_period
         # per SSM layer: its norm + the gate norm; per application of the
         # shared block: two norms; one final norm
         n_norms = 2 * cfg.n_layers + 2 * n_apps + 1
+        # the SSD runs in prefill: in bf16 three kernels (chunk state,
+        # state passing, chunk scan) where the prompt has more than one
+        # chunk, else the chunk scan alone
+        ssd_kernels = 3 if SERVE_PROMPT > cfg.ssm.chunk else 1
         return {"flash_attention_fwd": n_apps, "rmsnorm": n_norms * SERVE_GEN,
-                "ssd_scan": cfg.n_layers, "moe_gmm": 0}
+                "ssd_scan": ssd_kernels * cfg.n_layers, "moe_gmm": 0}
     # per layer ln1, ln2 and, with qk-norm, one launch each for q and k
     norms = 2 + (2 if cfg.attn.qk_norm else 0)
     return {"flash_attention_fwd": cfg.n_layers,

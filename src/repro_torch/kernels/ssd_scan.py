@@ -1,13 +1,15 @@
-"""Mamba2 SSD chunked scan: the CUDA kernel's wrapper, its plain version,
+"""Mamba2 SSD chunked scan: the CUDA kernels' wrapper, its plain version,
 its launch count.
 
-The kernel (``csrc/ssd_scan.cu``) replaces the Pallas TPU kernel
-``repro/kernels/ssd_scan.py::ssd_scan``.  ``ssd_scan`` launches it on
-CUDA tensors only; ``ssd_plain`` is the same function in plain PyTorch
-(``ref.ssd_chunked_ref``), which the CPU path and the comparisons on the
-card use.  Both take x (Bb, S, H, P), dt (Bb, S, H), A (H,) and B, C
-(Bb, S, G, N) and return y (Bb, S, H, P) in x's dtype: no D-skip, no
-final state.
+The kernels (``csrc/ssd_scan.cu``) replace the Pallas TPU kernel
+``repro/kernels/ssd_scan.py::ssd_scan``: bfloat16 runs on the tensor
+cores, split into chunk state, state passing and chunk scan (three
+launches, with a workspace the wrapper allocates), float32 on one FMA
+kernel.  ``ssd_scan`` launches them on CUDA tensors only; ``ssd_plain``
+is the same function in plain PyTorch (``ref.ssd_chunked_ref``), which
+the CPU path and the comparisons on the card use.  Both take x (Bb, S, H,
+P), dt (Bb, S, H), A (H,) and B, C (Bb, S, G, N) and return y (Bb, S, H,
+P) in x's dtype: no D-skip, no final state.
 """
 from __future__ import annotations
 
@@ -21,9 +23,12 @@ from repro_torch.kernels.ref import ssd_chunked_ref
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_SMEM_BYTES = 232448   # what one block may opt into on sm_90
-MAX_Y_TILES = 512         # 256 threads x two 4x4 tiles of y: Q * P <= 8192
+MAX_Y_TILES = 512         # fp32: 256 threads x two 4x4 y tiles: Q*P <= 8192
+MAX_N_BF16 = 128          # bf16: N in at most eight k16 steps of mma.sync
 
-# Times ssd_scan has launched its kernel in this process.
+# Kernels ssd_scan has launched on the card: three a call in bf16 with more
+# than one chunk (chunk state, state passing, chunk scan; these calls alone
+# take a workspace), else one.
 launches = 0
 
 
@@ -31,29 +36,64 @@ def ssd_plain(x, dt, A, B, C, *, chunk):
     return ssd_chunked_ref(x, dt, A, B, C, chunk=chunk)[0]
 
 
-def smem_bytes(chunk: int, p: int, n: int) -> int:
-    """Shared memory of one block (the kernel's ``layout``, in bytes)."""
-    qp = -(-chunk // 4) * 4
+def _ceil(v: int, m: int) -> int:
+    return -(-v // m) * m
+
+
+def _bf16_n_width(n: int) -> int:
+    """N as the bf16 kernels hold it: zeros up to 16, 32, 64 or 128."""
+    return next((w for w in (16, 32, 64, 128) if n <= w), _ceil(n, 16))
+
+
+def smem_bytes(chunk: int, p: int, n: int,
+               dtype: torch.dtype = torch.float32) -> int:
+    """Shared memory of one block: for float32 the FMA kernel's
+    ``layout``; for bfloat16 the larger of the chunk-state and chunk-scan
+    kernels' parts of ``tc_layout``."""
+    if dtype == torch.bfloat16:
+        qp, pp = _ceil(chunk, 16), _ceil(p, 16)
+        ldn, ldp = _bf16_n_width(n) + 8, pp + 8
+        shared = qp * ldn + qp * ldp            # B, x
+        state = shared + qp * ldp               # x o w as hi + lo
+        scan = shared + 2 * pp * ldn            # the state as hi + lo
+        return 2 * max(state, scan) + 8 * qp    # + L, dt in fp32
+    qp = _ceil(chunk, 4)
     qs = qp + 4
     floats = qp * p + 2 * n * qs + n * p + 32 * qs + 2 * qs
     return 4 * floats
 
 
-def kernel_fits(chunk: int, p: int, n: int) -> bool:
-    """One block holds (chunk, P, N): its shared memory, and two 4x4 tiles
-    of y a thread."""
-    qp = -(-chunk // 4) * 4
+def kernel_fits(chunk: int, p: int, n: int,
+                dtype: torch.dtype = torch.float32) -> bool:
+    """The kernels of ``dtype`` run (chunk, P, N): float32's block holds
+    them in its shared memory and two 4x4 tiles of y a thread; bfloat16's
+    blocks hold them in shared memory with N <= 128."""
+    if dtype == torch.bfloat16:
+        return (n <= MAX_N_BF16
+                and smem_bytes(chunk, p, n, dtype) <= MAX_SMEM_BYTES)
+    qp = _ceil(chunk, 4)
     return (smem_bytes(chunk, p, n) <= MAX_SMEM_BYTES
             and (qp // 4) * (p // 4) <= MAX_Y_TILES)
 
 
 @functools.cache
-def _fn():
-    fn = _build.load("ssd_scan").ssd_scan_fwd
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [
+def _lib():
+    lib = _build.load("ssd_scan")
+    lib.ssd_scan_fwd.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [
         ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+    lib.ssd_scan_fwd.restype = ctypes.c_int
+    lib.ssd_scan_workspace_bytes.argtypes = [ctypes.c_int] * 7
+    lib.ssd_scan_workspace_bytes.restype = ctypes.c_longlong
+    return lib
+
+
+def workspace_bytes(x: torch.Tensor, B: torch.Tensor, *, chunk: int) -> int:
+    """Bytes of workspace one call takes (the bf16 kernels' S_c, which
+    the state passing overwrites with the carried states, and exp(L_Q); 0
+    in fp32 or with one chunk)."""
+    bb, s, h, p = x.shape
+    return int(_lib().ssd_scan_workspace_bytes(
+        bb, s, h, p, B.shape[3], int(chunk), DTYPE_CODES[x.dtype]))
 
 
 def ssd_scan(x, dt, A, B, C, *, chunk):
@@ -85,10 +125,10 @@ def ssd_scan(x, dt, A, B, C, *, chunk):
     if g < 1 or h % g or p % 8 or n % 8:
         raise ValueError(f"need H % G == 0 and P, N multiples of 8, got "
                          f"H={h}, G={g}, P={p}, N={n}")
-    if not kernel_fits(chunk, p, n):
+    if not kernel_fits(chunk, p, n, x.dtype):
         raise ValueError(f"chunk={chunk}, P={p}, N={n} do not fit one "
-                         f"block ({smem_bytes(chunk, p, n)} B of shared "
-                         f"memory)")
+                         f"block ({smem_bytes(chunk, p, n, x.dtype)} B of "
+                         f"shared memory)")
     if not (all(t.is_contiguous() for t in ts)
             and all(t.data_ptr() % 16 == 0 for t in (x, B, C))):
         raise ValueError("ssd_scan takes contiguous inputs, x, B and C "
@@ -96,13 +136,15 @@ def ssd_scan(x, dt, A, B, C, *, chunk):
     y = torch.empty_like(x)
     if y.numel() == 0:
         return y
-    fn = _fn()
+    ws = torch.empty(workspace_bytes(x, B, chunk=chunk), dtype=torch.uint8,
+                     device=x.device)
     with torch.cuda.device(x.device):
-        err = fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
-                 C.data_ptr(), y.data_ptr(), bb, s, h, p, g, n, chunk,
-                 DTYPE_CODES[x.dtype],
-                 torch.cuda.current_stream().cuda_stream)
+        err = _lib().ssd_scan_fwd(
+            x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
+            C.data_ptr(), y.data_ptr(), ws.data_ptr() if ws.numel() else None,
+            bb, s, h, p, g, n, chunk, DTYPE_CODES[x.dtype],
+            torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"ssd_scan kernel launch failed: CUDA error {err}")
-    launches += 1
+    launches += 3 if ws.numel() else 1
     return y

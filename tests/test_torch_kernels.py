@@ -196,3 +196,33 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         port_rmsnorm.rmsnorm(torch.randn(2, 32), torch.ones(32))
     with pytest.raises(ValueError, match="all be on CUDA or all on the CPU"):
         ops.rmsnorm(torch.randn(2, 32), torch.ones(32, device="meta"))
+
+
+@pytest.mark.parametrize("shape", [(3, 2, 128), (2, 2048), (2, 3584),
+                                   (2, 4096)],
+                         ids=["qwen3_qk_norm", "tinyllama", "zamba2",
+                              "qwen3"])
+def test_rmsnorm_plain_vs_pallas_served_widths(shape):
+    """bf16 at the served widths, each on another path of the kernel:
+    128 packs two rows a warp, 2048-4096 hold a row in registers (8, 14
+    and 16 vectors a lane)."""
+    np_dt, t_dt, j_dt = DTYPES["bfloat16"]
+    x, w = _inputs([shape, shape[-1:]], np_dt, seed=3)
+    w = (1.0 + 0.1 * w.astype(np.float32)).astype(np_dt)
+    o_j = pallas_rmsnorm(jnp.asarray(x, j_dt), jnp.asarray(w, j_dt),
+                         block_rows=8, interpret=True)
+    o_t = ops.rmsnorm(_torch(x, t_dt), _torch(w, t_dt), eps=1e-6)
+    np.testing.assert_allclose(_f32(o_t), np.asarray(o_j, np.float32),
+                               rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.parametrize("d", [128, 2050, 4096, 40000])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_rmsnorm_wrapper_refuses_cpu_tensors_any_width(d, dtype):
+    """Packed, register-resident, scalar and two-pass widths alike: the
+    wrapper raises on CPU tensors and counts no launch."""
+    t_dt = DTYPES[dtype][1]
+    with pytest.raises(ValueError, match="CUDA"):
+        port_rmsnorm.rmsnorm(torch.zeros(2, d, dtype=t_dt),
+                             torch.ones(d, dtype=t_dt))
+    assert port_rmsnorm.launches == 0

@@ -154,3 +154,179 @@ def test_ssd_kernel_limits(chunk, p, n, fits):
     """What the wrapper lets through fits one block of the kernel: its
     shared memory and its two y tiles a thread."""
     assert port_ssd.kernel_fits(chunk, p, n) == fits
+
+
+# ---------------------------------------------------------------------------
+# The bf16 kernels' three-stage split, transcribed in float64
+# ---------------------------------------------------------------------------
+def _split_ssd_f64(x, dt, A, B, C, chunk):
+    """The algebra of ``csrc/ssd_scan.cu``'s bf16 path, in float64 numpy:
+    chunk rows padded to a multiple of 16 with dt = x = B = C = 0, then
+    (1) chunk state S_c = (x o w)^T B, w_j = exp(L_Q - L_j) dt_j, for
+    every chunk but the last; (2) state passing, state_{c+1} =
+    exp(L_Q,c) state_c + S_c from a zero state; (3) chunk scan,
+    y = M x + exp(L_i) C state^T with M = (C B^T) exp(L_i - L_j) dt_j where
+    j <= i and 0 elsewhere, the exponent set to 0 above the diagonal
+    before the exp."""
+    x, dt, A, B, C = (np.asarray(a, np.float64) for a in (x, dt, A, B, C))
+    bb, s, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    nc, qp = s // chunk, -(-chunk // 16) * 16
+    pad = ((0, 0), (0, 0), (0, qp - chunk))
+
+    def chunks(a):   # (Bb, S, K, ...) -> (Bb, nc, qp, K, ...), zero rows
+        a = a.reshape(bb, nc, chunk, *a.shape[2:])
+        return np.pad(a, pad + ((0, 0),) * (a.ndim - 3))
+
+    xc, dtc, bc, cc = chunks(x), chunks(dt), chunks(B), chunks(C)
+    y = np.zeros((bb, nc, qp, h, p))
+    causal = np.tril(np.ones((qp, qp), bool))
+    for hh in range(h):
+        gg = hh * g // h
+        lc = np.cumsum(dtc[..., hh] * A[hh], axis=2)          # (Bb, nc, qp)
+        lq = lc[..., -1]                                      # padded: L_Q
+        state = np.zeros((bb, p, n))
+        for c in range(nc):
+            xq, dq = xc[:, c, :, hh], dtc[:, c, :, hh]  # (Bb,qp,P), (Bb,qp)
+            bq, cq, lcq = bc[:, c, :, gg], cc[:, c, :, gg], lc[:, c]
+            dec = np.where(causal, lcq[:, :, None] - lcq[:, None, :], 0.0)
+            m = np.where(causal, np.einsum("bin,bjn->bij", cq, bq)
+                         * np.exp(dec) * dq[:, None, :], 0.0)
+            y[:, c, :, hh] = (np.einsum("bij,bjp->bip", m, xq)
+                              + np.exp(lcq)[..., None]
+                              * np.einsum("bin,bpn->bip", cq, state))
+            if c < nc - 1:
+                w = np.exp(lq[:, c, None] - lcq) * dq
+                s_c = np.einsum("bjp,bjn->bpn", xq * w[..., None], bq)
+                state = np.exp(lq[:, c])[:, None, None] * state + s_c
+    return y[:, :, :chunk].reshape(bb, s, h, p)
+
+
+SPLIT_CASES = {
+    # bb, s, h, p, g, n, chunk: the served head shapes cut to S = 256
+    "zamba2": (1, 256, 2, 64, 1, 64, 128),
+    "mamba2": (1, 256, 2, 64, 1, 128, 128),
+    "groups4_chunk64": (1, 256, 4, 64, 4, 64, 64),
+    # the reduced configs: chunk 8 padded to 16 rows
+    "reduced_chunk8": (2, 32, 4, 8, 2, 16, 8),
+}
+
+
+def _recurrence_f64(x, dt, A, B, C):
+    """y of the per-step recurrence, state = exp(dt A) state + dt x B^T,
+    y = state C, in float64 numpy: independent of any chunking."""
+    x, dt, A, B, C = (np.asarray(a, np.float64) for a in (x, dt, A, B, C))
+    bb, s, h, p = x.shape
+    g = B.shape[2]
+    y = np.zeros_like(x)
+    for hh in range(h):
+        gg = hh * g // h
+        state = np.zeros((bb, p, B.shape[3]))
+        for t in range(s):
+            d = dt[:, t, hh, None, None]
+            state = (np.exp(d * A[hh]) * state
+                     + d * x[:, t, hh, :, None] * B[:, t, gg, None, :])
+            y[:, t, hh] = np.einsum("bpn,bn->bp", state, C[:, t, gg])
+    return y
+
+
+@pytest.mark.parametrize("case", sorted(SPLIT_CASES))
+def test_ssd_split_f64_vs_pallas_and_chunked(case):
+    """The three-stage split the bf16 kernels implement computes the
+    Pallas kernel's function: held against the Pallas kernel (interpret)
+    and the port's chunked version at 1e-6.  Both compute in float32, and
+    at the sweep's decays (|L| up to ~200 over a chunk) their own rounding
+    of L moves exp(L_i - L_j) by ~1e-5; so here dt is scaled by 1/100
+    (|L_Q| of a few), where float32 holds the function to ~1e-7."""
+    bb, s, h, p, g, n, chunk = SPLIT_CASES[case]
+    x, dt, A, B, C = _inputs(bb, s, h, p, g, n, np.float32, seed=11)
+    dt = (dt * 0.01).astype(np.float32)
+    y = _split_ssd_f64(x, dt, A, B, C, chunk)
+    y_j = pallas_ssd_scan(*(jnp.asarray(a) for a in (x, dt, A, B, C)),
+                          chunk=chunk, interpret=True)
+    y_t = ref.ssd_chunked_ref(*(_torch(a, torch.float32)
+                                for a in (x, dt, A, B, C)), chunk=chunk)[0]
+    np.testing.assert_allclose(np.asarray(y_j), y, rtol=1e-6, atol=1e-6,
+                               err_msg="pallas")
+    np.testing.assert_allclose(y_t.numpy(), y, rtol=1e-6, atol=1e-6,
+                               err_msg="chunked")
+
+
+# float32 rounds L in [128, 256) to a step of 2^-16 and its cumsum over a
+# chunk to a few such steps: exp(L_i - L_j) is off by ~3e-5 relative, and
+# y by about that times |y| (here <= ~15).  1e-4 leaves a factor of ~4
+# over what the cases read (<= 2.8e-5); a mask or decay error is O(1).
+SWEEP_DECAY_TOL = 1e-4
+
+
+@pytest.mark.parametrize("case", sorted(SPLIT_CASES))
+def test_ssd_split_f64_vs_pallas_at_sweep_decays(case):
+    """At the sweep's own decays (|L| up to ~230 over a chunk) the split
+    matches the Pallas kernel (interpret) and the port's chunked version
+    within float32's rounding of L."""
+    bb, s, h, p, g, n, chunk = SPLIT_CASES[case]
+    x, dt, A, B, C = _inputs(bb, s, h, p, g, n, np.float32, seed=11)
+    y = _split_ssd_f64(x, dt, A, B, C, chunk)
+    y_j = pallas_ssd_scan(*(jnp.asarray(a) for a in (x, dt, A, B, C)),
+                          chunk=chunk, interpret=True)
+    y_t = ref.ssd_chunked_ref(*(_torch(a, torch.float32)
+                                for a in (x, dt, A, B, C)), chunk=chunk)[0]
+    tol = SWEEP_DECAY_TOL
+    np.testing.assert_allclose(np.asarray(y_j), y, rtol=tol, atol=tol,
+                               err_msg="pallas")
+    np.testing.assert_allclose(y_t.numpy(), y, rtol=tol, atol=tol,
+                               err_msg="chunked")
+
+
+@pytest.mark.parametrize("case", sorted(SPLIT_CASES))
+def test_ssd_split_f64_vs_recurrence_f64(case):
+    """At the sweep's own decays the split, chunk padding and state
+    passing included, is the per-step recurrence: both in float64."""
+    bb, s, h, p, g, n, chunk = SPLIT_CASES[case]
+    x, dt, A, B, C = _inputs(bb, s, h, p, g, n, np.float32, seed=11)
+    np.testing.assert_allclose(_split_ssd_f64(x, dt, A, B, C, chunk),
+                               _recurrence_f64(x, dt, A, B, C), rtol=1e-9,
+                               atol=1e-9)
+
+
+def test_ssd_split_masks_before_the_exp():
+    """Above the diagonal L_i - L_j > 0 and can overflow exp: the split
+    sets the exponent to 0 there before the exp, so a steep decay gives
+    finite outputs that match the per-step recurrence."""
+    bb, s, h, p, g, n, chunk = 1, 64, 2, 8, 1, 16, 32
+    x, dt, A, B, C = _inputs(bb, s, h, p, g, n, np.float32, seed=5)
+    A = (A * 200.0).astype(np.float32)    # |L| over a chunk ~ 1e4
+    with np.errstate(over="raise"):
+        y = _split_ssd_f64(x, dt, A, B, C, chunk)
+    y_r, _ = ref.ssd_ref(*(_torch(a, torch.float32)
+                           for a in (x, dt, A, B, C)))
+    assert np.isfinite(y).all()
+    np.testing.assert_allclose(y_r.numpy(), y, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("chunk,p,n,fits,smem", [
+    (128, 64, 64, True, 56320),      # Zamba2-7B
+    (128, 64, 128, True, 89088),    # Mamba2 widths
+    (8, 8, 16, True, 3200),          # reduced configs
+    (256, 64, 64, True, 112640),     # a chunk the fp32 kernel cannot hold
+    (512, 64, 128, False, 290816),   # over one block's 227 KB
+    (128, 64, 256, False, 154624),   # N over eight k16 steps
+])
+def test_ssd_bf16_kernel_limits(chunk, p, n, fits, smem):
+    """The bf16 (tensor-core) kernels' shared memory and what they run;
+    float32 keeps the FMA kernel's limits."""
+    assert port_ssd.smem_bytes(chunk, p, n, torch.bfloat16) == smem
+    assert port_ssd.kernel_fits(chunk, p, n, torch.bfloat16) == fits
+    assert port_ssd.kernel_fits(chunk, p, n) == port_ssd.kernel_fits(
+        chunk, p, n, torch.float32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_kernel_wrapper_refuses_cpu_tensors_any_dtype(dtype):
+    """bf16 (tensor cores) and fp32 (FMA) alike: CPU tensors raise."""
+    x, dt, A, B, C = _inputs(1, 256, 2, 64, 1, 64, np.float32)
+    args = (_torch(x, dtype), _torch(dt, torch.float32),
+            _torch(A, torch.float32), _torch(B, dtype), _torch(C, dtype))
+    with pytest.raises(ValueError, match="CUDA"):
+        port_ssd.ssd_scan(*args, chunk=128)
+    assert port_ssd.launches == 0
