@@ -5,15 +5,17 @@
 
 Phases, in order; any failure raises and exits non-zero:
 
-1. build  - compile every CUDA kernel of the serving paths from
-   ``src/repro_torch/csrc`` (one nvcc per source, all in parallel), and
-   report each kernel instantiation's registers, spills and tensor-core
-   instructions; the gmm's wgmma kernels must not spill and must hold
+1. build  - compile every CUDA kernel (the serving paths' four and the
+   study's wavefront) from ``src/repro_torch/csrc`` (one nvcc per source,
+   all in parallel), and report each kernel instantiation's registers,
+   spills and tensor-core instructions; the gmm's wgmma kernels must not spill and must hold
    HGMMA, the SSD's bf16 kernels must not spill and must hold HMMA;
 2. kernels - hold each kernel against its plain PyTorch version on the
-   card at the serving paths' shapes, and time the kernel, the plain
-   version and the one PyTorch call that computes the same function (the
-   gmm also with ids outside [0, E));
+   card at the serving paths' shapes (the wavefront at the study's: gpipe,
+   1f1b, interleaved, mixed keys up to S 16 x L 542, and a key too large
+   for shared memory), and time the kernel, the plain version and the one
+   PyTorch call that computes the same function (the gmm also with ids
+   outside [0, E), the wavefront with key indices outside [0, U));
 3. three serving paths, each with seeded random weights at full width,
    bf16: TinyLlama-1.1B (22 layers; flash + rmsnorm), Zamba2-7B (81 Mamba2
    layers + 13 applications of the shared attention block; ssd_scan +
@@ -30,6 +32,17 @@ Phases, in order; any failure raises and exits non-zero:
              1) in float32, on the card and on the CPU (plain versions)
              from the same weights: prefill logits and the first 8 greedy
              tokens must agree.
+4. study  - ``repro_torch``'s ``Study.run()`` on the card for every
+   committed scenario of the batched drivers and two with the schedule as
+   a search dimension (validate_top 8), counting every kernel's launches
+   (set to 0 just before, read just after: the wavefront's must equal the
+   studies' replay calls, the serving kernels' 0), each held against the
+   CPU path (identical records, metrics within 1e-12), with the study.*
+   spans' times;
+5. scan   - ``batched_simulate`` on the BENCH_dse.json TinyLlama cell
+   (3,072 design points) tiled to 30,720, 307,200 and 3,072,000 rows, on
+   the card and through the CPU path, the whole call and the cost terms
+   alone, card and CPU equal bit for bit; prints the crossover.
 
 The last lines are the card's name and power limit (nvidia-smi), one JSON
 line ``{"kernels": [...]}`` and ``{"ok": true, "device": {...}}``.
@@ -38,6 +51,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import pathlib
 import re
 import shutil
@@ -137,7 +151,8 @@ def card_line() -> str:
 def phase_build():
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
-    sources = ["rmsnorm", "flash_attention", "ssd_scan", "moe_gmm"]
+    sources = ["rmsnorm", "flash_attention", "ssd_scan", "moe_gmm",
+               "wavefront"]
     _build.build_all(sources)
     log("build", f"{len(sources)} sources in {time.perf_counter() - t0:.2f}s "
         f"into {_build.BUILD_DIR}")
@@ -607,9 +622,10 @@ def gmm_bad_ids(gen):
 # 3. serve at full width
 # ---------------------------------------------------------------------------
 def _kernel_modules():
-    from repro_torch.kernels import flash_attention, moe_gmm, rmsnorm, ssd_scan
+    from repro_torch.kernels import (flash_attention, moe_gmm, rmsnorm,
+                                     ssd_scan, wavefront)
     return {"flash_attention_fwd": flash_attention, "rmsnorm": rmsnorm,
-            "ssd_scan": ssd_scan, "moe_gmm": moe_gmm}
+            "ssd_scan": ssd_scan, "moe_gmm": moe_gmm, "wavefront": wavefront}
 
 
 def expected_launches(cfg) -> dict:
@@ -626,13 +642,15 @@ def expected_launches(cfg) -> dict:
         # chunk, else the chunk scan alone
         ssd_kernels = 3 if SERVE_PROMPT > cfg.ssm.chunk else 1
         return {"flash_attention_fwd": n_apps, "rmsnorm": n_norms * SERVE_GEN,
-                "ssd_scan": ssd_kernels * cfg.n_layers, "moe_gmm": 0}
+                "ssd_scan": ssd_kernels * cfg.n_layers, "moe_gmm": 0,
+                "wavefront": 0}
     # per layer ln1, ln2 and, with qk-norm, one launch each for q and k
     norms = 2 + (2 if cfg.attn.qk_norm else 0)
     return {"flash_attention_fwd": cfg.n_layers,
             "rmsnorm": (norms * cfg.n_layers + 1) * SERVE_GEN, "ssd_scan": 0,
             # w1, w3, w2 of every MoE layer
-            "moe_gmm": 3 * cfg.n_layers * SERVE_GEN if cfg.moe else 0}
+            "moe_gmm": 3 * cfg.n_layers * SERVE_GEN if cfg.moe else 0,
+            "wavefront": 0}
 
 
 def phase_serve(arch: str, depth):
@@ -783,6 +801,283 @@ def phase_check(arch: str, n_layers: int, prompt: int):
     check(same, "card greedy tokens match the CPU run")
 
 
+# ---------------------------------------------------------------------------
+# 4-5. the design-space study: the wavefront kernel, Study.run(), the scan
+# ---------------------------------------------------------------------------
+WAVEFRONT_TOL = 1e-12    # float64, the same operations in the same order
+WAVEFRONT_K = 32         # records of the study's widest replay call
+WAVEFRONT_CASES = [
+    # name, shape keys (schedule, pp, v, n_micro), records
+    ("gpipe", [("gpipe", 16, 1, 64)], WAVEFRONT_K),
+    ("1f1b", [("1f1b", 16, 1, 64)], WAVEFRONT_K),
+    ("interleaved", [("interleaved", 16, 4, 64)], WAVEFRONT_K),
+    # paper_qwen3_validate's widest event re-rank call: four keys up to
+    # S 16 x L 542 in one launch
+    ("mixed", [("gpipe", 16, 1, 64), ("1f1b", 8, 1, 32),
+               ("interleaved", 16, 4, 64), ("interleaved", 2, 2, 8)],
+     WAVEFRONT_K),
+    # S 64 x L 1150: 0.88 MB of history and level codes, more than a
+    # block's shared memory, so both go to device-memory scratch
+    ("device_memory_history", [("gpipe", 64, 1, 512)], 8),
+]
+WAVEFRONT_TIMED = "mixed"
+# The wavefront's bound is its dependent chain: L levels, each one
+# shared-memory load (~30 cycles on Hopper), a float64 max and add (two
+# dependent ops of ~8 cycles) and a barrier (~20 cycles), at the SM clock
+# nvidia-smi reports (clocks.max.sm); blocks beyond one wave repeat it.
+WAVEFRONT_CYCLES_PER_LEVEL = 30 + 2 * 8 + 20
+H100_SMS = 132
+
+
+def wavefront_inputs(keys, k: int, rng):
+    """Stacked tables, key indices and (6, K) rows like an event re-rank
+    call's: spans of 1-10 ms, a DP all-reduce on some records."""
+    from repro_torch.events.batch import _key_tables
+    tabs = [torch.tensor(t) for t in _key_tables(tuple(keys))]
+    key_rows = torch.tensor(rng.randint(0, len(keys), k), dtype=torch.int32)
+    nmv = torch.tensor([keys[i][2] * keys[i][3] for i in key_rows.tolist()],
+                       dtype=torch.float64)
+    t_dp = torch.tensor(rng.uniform(0.0, 0.05, k) * (rng.rand(k) < 0.7))
+    rows = torch.stack([torch.tensor(rng.uniform(1e-3, 1e-2, k)),
+                        torch.tensor(rng.uniform(1e-3, 2e-2, k)), t_dp,
+                        torch.tensor(rng.uniform(0.0, 0.05, k)), nmv,
+                        torch.tensor(rng.uniform(0.5, 2.0, k))])
+    return tabs, key_rows, rows
+
+
+def sm_clock_hz() -> float:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True,
+                         timeout=60)
+    return float(out.stdout.strip().splitlines()[0]) * 1e6
+
+
+def phase_wavefront():
+    import numpy as np
+
+    from repro_torch.kernels import wavefront as wf
+    rng = np.random.RandomState(SEED)
+    limit = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
+    clock = sm_clock_hz()
+    records = {}
+    for name, keys, k in WAVEFRONT_CASES:
+        tabs, key_rows, rows = wavefront_inputs(keys, k, rng)
+        tabs = [t.cuda() for t in tabs]
+        key_rows, rows = key_rows.cuda(), rows.cuda()
+        _, S, L = tabs[0].shape
+        in_shared = wf.shared_bytes(S, L) <= limit
+        out = wf.wavefront(*tabs, key_rows, rows)
+        plain = wf.wavefront_plain(*tabs, key_rows, rows)
+        torch.cuda.synchronize()
+        err = (out - plain).abs().max().item()
+        rec = {"case": name, "keys": keys, "shape": [len(keys), k, S, L],
+               "dtype": "float64", "history": "shared" if in_shared
+               else "device memory", "max_abs_err": err,
+               "tol": WAVEFRONT_TOL}
+        check(bool(torch.isfinite(out).all()), f"wavefront {name}: finite")
+        check(err <= WAVEFRONT_TOL, f"wavefront {name}: kernel vs plain "
+              f"{err} (tol {WAVEFRONT_TOL})")
+        check(in_shared == (name != "device_memory_history"),
+              f"wavefront {name}: history in {rec['history']}")
+        nbytes = sum(t.numel() * 4 for t in tabs) + key_rows.numel() * 4 \
+            + rows.numel() * 8 + out.numel() * 8
+        threads = 32 * -(-S // 32)
+        smem = wf.shared_bytes(S, L) if in_shared else S * 8
+        per_sm = max(1, min(32, 2048 // threads, limit // smem))
+        waves = -(-k // (H100_SMS * per_sm))
+        chain_s = waves * L * WAVEFRONT_CYCLES_PER_LEVEL / clock
+        t_bytes = nbytes / PEAK_BYTES_PER_S
+        rec["bound_ms"] = max(chain_s, t_bytes) * 1e3
+        rec["bound_by"] = "operations" if chain_s > t_bytes else "bytes"
+        rec["chain"] = {"levels": L, "cycles_per_level":
+                        WAVEFRONT_CYCLES_PER_LEVEL, "sm_clock_hz": clock,
+                        "waves": waves}
+        rec["ms"] = time_ms(lambda: wf.wavefront(*tabs, key_rows, rows), 50)
+        rec["device_ms"] = device_ms(
+            lambda: wf.wavefront(*tabs, key_rows, rows), 20)
+        rec["plain_ms"] = time_ms(
+            lambda: wf.wavefront_plain(*tabs, key_rows, rows), 2, warmup=1)
+        rec["library_ms"] = None   # no PyTorch call runs this recurrence
+        records[name] = rec
+        log("kernel", {"name": "wavefront", **rec})
+    # a key index outside [0, U) gives a NaN column, the others as before
+    tabs, key_rows, rows = wavefront_inputs(WAVEFRONT_CASES[3][1], 8, rng)
+    tabs = [t.cuda() for t in tabs]
+    key_rows, rows = key_rows.cuda(), rows.cuda()
+    good = wf.wavefront(*tabs, key_rows, rows)
+    bad_rows = key_rows.clone()
+    bad_rows[[2, 5]] = torch.tensor([-1, tabs[0].shape[0]], dtype=torch.int32,
+                                    device="cuda")
+    bad = wf.wavefront(*tabs, bad_rows, rows)
+    keep = [i for i in range(8) if i not in (2, 5)]
+    check(bool(torch.isnan(bad[:, [2, 5]]).all())
+          and torch.equal(bad[:, keep], good[:, keep]),
+          "wavefront: key indices -1 and U give NaN columns, the rest as "
+          "with valid indices")
+    log("kernel", "wavefront: key indices outside [0, U) give NaN columns")
+    return {**records[WAVEFRONT_TIMED],
+            "shapes": [r for n, r in records.items()
+                       if n != WAVEFRONT_TIMED]}
+
+
+# every committed scenario the batched drivers run (all but
+# paper_qwen3_outer, whose driver is not ported), then two with the
+# schedule as a search dimension and validation of the top 8
+STUDY_CASES = [(name, {}) for name in (
+    "gemma3_dense", "llava_vlm", "mixtral_nsga2", "paper_qwen3",
+    "paper_qwen3_validate", "tinyllama_quick", "whisper_encdec",
+    "zamba2_hybrid")] + [
+    (name, {"schedule": "search", "validate_top": 8})
+    for name in ("tinyllama_quick", "paper_qwen3_validate")]
+STUDY_TOL = 1e-12        # card vs CPU path: the same float64 operations
+STUDY_SPANS = ("study.run", "study.scan", "study.event_rerank",
+               "study.refine", "study.validate_top")
+SCAN_TILES = (1, 10, 100, 1000)   # x the BENCH_dse.json TinyLlama sweep
+
+
+def _compare_studies(label: str, card, cpu) -> float:
+    """Identical records in identical order; returns the largest relative
+    metric difference (checked against STUDY_TOL)."""
+    check(len(card.records) == len(cpu.records),
+          f"{label}: {len(card.records)} records on the card, "
+          f"{len(cpu.records)} on the CPU")
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(card.records, cpu.records)):
+        check((a.strategy, a.mcm, a.fabric, a.source)
+              == (b.strategy, b.mcm, b.fabric, b.source),
+              f"{label}: record {i} differs")
+        check(set(a.metrics) == set(b.metrics),
+              f"{label}: record {i} metric keys differ")
+        for key, x in a.metrics.items():
+            y = b.metrics[key]
+            if isinstance(x, str):
+                check(x == y, f"{label}: record {i} {key} {x} vs {y}")
+            elif x != y and not (math.isnan(x) and math.isnan(y)):
+                worst = max(worst, abs(x - y) / max(abs(y), 1e-300))
+    check(worst <= STUDY_TOL, f"{label}: metrics differ by {worst} "
+          f"relative (tol {STUDY_TOL})")
+    return worst
+
+
+def phase_study():
+    from repro_torch.api import Scenario, Study
+    from repro_torch.obs.trace import tracing
+
+    scenarios = [(f"{n}+search" if over else n,
+                  Scenario.load(ROOT / "scenarios" / f"{n}.json").replace(
+                      **over)) for n, over in STUDY_CASES]
+    Study(scenarios[-1][1]).run(device="cuda")   # CUDA context, first build
+    torch.cuda.synchronize()
+    card = {}
+    mods = _kernel_modules()
+    for m in mods.values():
+        m.launches = 0
+    for label, sc in scenarios:
+        with tracing() as tr:
+            t0 = time.perf_counter()
+            res = Study(sc).run(device="cuda")
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        spans = {}
+        for ev in tr.events:
+            if ev["name"] in STUDY_SPANS:
+                spans[ev["name"]] = spans.get(ev["name"], 0.0) \
+                    + ev["dur_ns"] / 1e6
+        card[label] = (res, wall_ms, spans)
+    launches = {name: m.launches for name, m in mods.items()}
+    device_calls = sum(r.provenance["metrics"]["counters"].get(
+        "batch_replay.device_calls", 0) for r, _, _ in card.values())
+    log("study", f"main-path launches {launches}")
+    check(launches["wavefront"] == device_calls and device_calls > 0,
+          f"study: wavefront launched {launches['wavefront']} times, the "
+          f"studies made {device_calls} replay calls on the card")
+    check(all(n == 0 for name, n in launches.items() if name != "wavefront"),
+          "study: no serving kernel launched on the study's path")
+    for label, sc in scenarios:
+        res, wall_ms, spans = card[label]
+        t0 = time.perf_counter()
+        cpu = Study(sc).run(device="cpu")
+        cpu_ms = (time.perf_counter() - t0) * 1e3
+        worst = _compare_studies(label, res, cpu)
+        check(res.best is not None and all(
+            math.isfinite(r.metrics["throughput"]) for r in res.records),
+            f"{label}: a feasible best point and finite throughputs")
+        counters = res.provenance["metrics"]["counters"]
+        log("study", {
+            "scenario": label, "records": len(res.records),
+            "best_throughput": res.records[res.best].metrics["throughput"],
+            "wall_ms": wall_ms, "cpu_path_wall_ms": cpu_ms,
+            "spans_ms": spans,
+            "scan_device_calls": counters.get("batched_sim.device_calls", 0),
+            "replay_device_calls": counters.get("batch_replay.device_calls",
+                                               0),
+            "event_rerank": res.provenance.get("event_rerank", {}).get(
+                "winners"),
+            "validated": res.provenance.get("validate", {}).get(
+                "n_validated"),
+            "max_rel_diff_vs_cpu": worst})
+    return launches
+
+
+def phase_scan():
+    """``batched_simulate`` on the BENCH_dse.json TinyLlama cell (3,072
+    design points, 36 MCM variants, OI), its strategy batch tiled x1 to
+    x1000: on the card and through the CPU path, the whole call and its
+    cost terms (the ``batched_sim.terms`` span: copies, ops, copy back),
+    and card vs CPU bit for bit."""
+    import numpy as np
+
+    from repro_torch.api import Scenario
+    from repro_torch.dse import batched_sim as bs
+    from repro_torch.dse.space import StrategyBatch
+    from repro_torch.obs.trace import tracing
+
+    sc = Scenario(model="tinyllama_1_1b", total_tflops=4e6, seq_len=4096,
+                  global_batch=512, fabrics=("oi",))
+    w, space = sc.build_workload(), sc.design_space()
+    cells = list(space.batches())
+    batch = StrategyBatch.concat([g for _, _, g in cells])
+    local = np.concatenate([np.full(len(g), i, np.int64)
+                            for i, (_, _, g) in enumerate(cells)])
+    mcms = [m for m, _, _ in cells]
+    sizes = []
+    for tile in SCAN_TILES:
+        tb = StrategyBatch.concat([batch] * tile)
+        mb = bs.MCMBatch.from_mcms(mcms, np.tile(local, tile))
+        rec = {"rows": len(tb)}
+        outs = {}
+        for device in ("cuda", "cpu"):
+            runs = []
+            for _ in range(1 + (5 if tile < 1000 else 2)):   # 1 warm-up
+                with tracing() as tr:
+                    t0 = time.perf_counter()
+                    outs[device] = bs.batched_simulate(
+                        w, tb, mb, fabric="oi", reuse=True, hw=mcms[0].hw,
+                        device=device)
+                    call_ms = (time.perf_counter() - t0) * 1e3
+                terms_ms = sum(e["dur_ns"] for e in tr.events
+                               if e["name"] == "batched_sim.terms") / 1e6
+                runs.append((call_ms, terms_ms))
+            runs = runs[1:]
+            rec[f"{device}_ms"] = sorted(r[0] for r in runs)[len(runs) // 2]
+            rec[f"terms_{device}_ms"] = sorted(
+                r[1] for r in runs)[len(runs) // 2]
+        check(all(np.array_equal(getattr(outs["cuda"], f),
+                                 getattr(outs["cpu"], f))
+                  for f in ("feasible", "step_time", "throughput", "mfu",
+                            "power", "t_mem", "t_coll")),
+              f"scan {len(tb)} rows: card and CPU path agree bit for bit")
+        rec["card_speedup"] = rec["cpu_ms"] / rec["cuda_ms"]
+        rec["terms_card_speedup"] = rec["terms_cpu_ms"] / rec["terms_cuda_ms"]
+        sizes.append(rec)
+        log("scan", rec)
+    wins = [r["rows"] for r in sizes if r["card_speedup"] > 1.0]
+    terms_wins = [r["rows"] for r in sizes if r["terms_card_speedup"] > 1.0]
+    log("scan", {"card_wins_whole_call_at_rows": wins,
+                 "card_wins_terms_at_rows": terms_wins})
+
+
 # the serving paths: arch, serve depth (None: the config's), depth of
 # the card-vs-CPU check, its prompt
 PATHS = (
@@ -803,14 +1098,19 @@ SOURCES = {
                  "src/repro/kernels/ssd_scan.py:69"),
     "moe_gmm": ("src/repro_torch/csrc/moe_gmm.cu",
                 "src/repro/kernels/moe_gmm.py:45"),
+    "wavefront": ("src/repro_torch/csrc/wavefront.cu",
+                  "src/repro/events/batch.py:277"),
 }
+NOT_PALLAS = {"wavefront": "replaces _jax_shape_fn, a jitted array program "
+                           "of the study's event re-rank, not a Pallas "
+                           "kernel"}
 
 
 def phase_kernels():
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     return {"flash_attention_fwd": phase_flash(gen),
             "rmsnorm": phase_rmsnorm(gen), "ssd_scan": phase_ssd(gen),
-            "moe_gmm": phase_gmm(gen)}
+            "moe_gmm": phase_gmm(gen), "wavefront": phase_wavefront()}
 
 
 def main() -> int:
@@ -834,6 +1134,8 @@ def main() -> int:
         torch.cuda.empty_cache()
         phase_check(arch, check_depth, prompt)
         by_path[arch] = launches
+    by_path["study"] = phase_study()
+    phase_scan()
 
     kernels = []
     for name, rec in records.items():
@@ -847,6 +1149,7 @@ def main() -> int:
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
             "shape": rec["shape"], "dtype": rec["dtype"],
+            **({"note": NOT_PALLAS[name]} if name in NOT_PALLAS else {}),
             "other_shapes": [
                 {k: r[k] for k in ("case", "shape", "dtype", "ms", "plain_ms",
                                    "bound_ms", "bound_by", "library_ms",

@@ -1,0 +1,270 @@
+"""Study CLI — the run path over ``repro_torch.api``.
+
+    PYTHONPATH=src python -m repro_torch.cli scenarios/paper_qwen3.json
+    PYTHONPATH=src python -m repro_torch.cli scenarios/tinyllama_quick.json \
+        --device cpu
+    PYTHONPATH=src python -m repro_torch.cli --model qwen3_moe_235b_a22b \
+        --C 4e6 --fabrics oi,ib --driver exhaustive --top 5
+
+Runs ``Study.run()`` on scenario JSON files (flags override fields) or on
+a scenario built from flags alone (``--model all`` sweeps the whole
+zoo), prints the best points + Pareto summary, and writes one versioned
+``StudyResult`` JSON artifact per study.  The study's device work (the
+scan's cost terms, the event wavefront) runs on ``--device``: the card
+by default, which must be there; ``--device cpu`` runs the plain paths.
+
+The reference CLI's subcommands (``validate``, ``timeline``, ``bench``,
+``calibrate``, ``lint``) and ``--trace`` come with later parts of the
+port (ROADMAP A4, A5).
+
+Exit codes: 0 ok; 2 bad arguments; 3 when a study found NO feasible
+design point (every sweep cell infeasible).
+"""
+from __future__ import annotations
+
+import argparse
+import sys
+from pathlib import Path
+from typing import List, Optional, Tuple
+
+from repro_torch.api import DRIVERS, Scenario, Study, StudyResult
+
+EXIT_OK, EXIT_USAGE, EXIT_INFEASIBLE = 0, 2, 3
+
+
+# ---------------------------------------------------------------------------
+# Validated comma-list parsing (--fabrics/--dies/--m/--cpo/--objectives)
+# ---------------------------------------------------------------------------
+def _csv(conv, what: str):
+    """argparse type: reject empty items and duplicates with one clear
+    message instead of a deep traceback out of the engine."""
+
+    def parse(text: str) -> Tuple:
+        items = [t.strip() for t in text.split(",")]
+        if not text.strip() or any(not t for t in items):
+            raise argparse.ArgumentTypeError(
+                f"empty entry in {what} list {text!r}")
+        try:
+            vals = tuple(conv(t) for t in items)
+        except ValueError:
+            raise argparse.ArgumentTypeError(
+                f"{what} list {text!r} has a non-{conv.__name__} "
+                f"entry") from None
+        if len(set(vals)) != len(vals):
+            raise argparse.ArgumentTypeError(
+                f"duplicate entries in {what} list {text!r}")
+        return vals
+
+    return parse
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(
+        prog="python -m repro_torch.cli",
+        description=__doc__,
+        formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("scenario", nargs="*",
+                    help="scenario JSON file(s); flags override fields")
+    ap.add_argument("--model", default=None,
+                    help="config name, or 'all' for the whole zoo")
+    ap.add_argument("--C", type=float, default=None,
+                    help="total cluster compute, TFLOPS")
+    ap.add_argument("--seq-len", type=int, default=None)
+    ap.add_argument("--global-batch", type=int, default=None)
+    ap.add_argument("--fabrics", type=_csv(str, "--fabrics"), default=None)
+    ap.add_argument("--dies", type=_csv(int, "--dies"), default=None)
+    ap.add_argument("--m", type=_csv(int, "--m"), default=None)
+    ap.add_argument("--cpo", type=_csv(float, "--cpo"), default=None)
+    ap.add_argument("--objectives", type=_csv(str, "--objectives"),
+                    default=None)
+    ap.add_argument("--driver", default=None, choices=DRIVERS.names())
+    ap.add_argument("--budget", type=int, default=None,
+                    help="per-cell budget for non-exhaustive drivers")
+    ap.add_argument("--generations", type=int, default=None)
+    ap.add_argument("--no-reuse", action="store_true")
+    ap.add_argument("--refine", action="store_true",
+                    help="(legacy) refine the top --top points; "
+                         "refinement is otherwise on by default with "
+                         "--refine-top winners")
+    ap.add_argument("--refine-top", type=int, default=None,
+                    help="scalar-oracle refinement of the top N points "
+                         "(0 disables)")
+    ap.add_argument("--keep-top", type=int, default=None,
+                    help="records kept in the artifact (0 = all)")
+    ap.add_argument("--validate-top", type=int, default=None,
+                    help="event-replay validation of the top N records "
+                         "(stamps validated_step_time/fidelity_err)")
+    ap.add_argument("--schedule", default=None,
+                    choices=("gpipe", "1f1b", "interleaved", "search"),
+                    help="pipeline schedule(s) the event engine uses; "
+                         "'search' makes the schedule a search "
+                         "dimension (event re-rank of the frontier)")
+    ap.add_argument("--top", type=int, default=5,
+                    help="best points to print")
+    ap.add_argument("--seed", type=int, default=None)
+    ap.add_argument("--quick", action="store_true",
+                    help="smoke mode: first grid cell only, small budgets")
+    ap.add_argument("--out", default="artifacts/studies",
+                    help="output .json file (single study) or directory")
+    ap.add_argument("--device", default="cuda",
+                    help="where the study's device work runs (default "
+                         "cuda; cpu runs the plain paths)")
+    return ap
+
+
+# ---------------------------------------------------------------------------
+# Scenario assembly
+# ---------------------------------------------------------------------------
+_FLAG_FIELDS = {          # argparse dest -> Scenario field
+    "model": "model", "C": "total_tflops", "seq_len": "seq_len",
+    "global_batch": "global_batch", "fabrics": "fabrics",
+    "dies": "dies_per_mcm", "m": "m", "cpo": "cpo_ratio",
+    "objectives": "objectives", "driver": "driver",
+    "refine_top": "refine_top", "keep_top": "keep_top", "seed": "seed",
+    "validate_top": "validate_top", "schedule": "schedule",
+}
+
+
+def _overrides(args) -> dict:
+    over = {field: getattr(args, dest)
+            for dest, field in _FLAG_FIELDS.items()
+            if getattr(args, dest) is not None}
+    if args.no_reuse:
+        over["reuse"] = False
+    if args.refine and args.refine_top is None:
+        over["refine_top"] = args.top       # legacy: refine top_k=--top
+    kw = {}
+    if args.budget is not None:
+        kw["budget"] = args.budget
+    if args.generations is not None:
+        kw["generations"] = args.generations
+    if kw:
+        over["driver_kw"] = kw
+    return over
+
+
+def _quick(sc: Scenario) -> Scenario:
+    """Smoke-mode shrink: one MCM grid cell, small budgets."""
+    kw = dict(sc.driver_kw)
+    for k, cap in (("budget", 32), ("generations", 3), ("pop_size", 16),
+                   ("outer_iters", 2), ("inner_budget", 8),
+                   ("rounds", 2), ("walkers", 4)):
+        if k in kw:
+            kw[k] = min(kw[k], cap)
+    if sc.driver in ("random", "prf"):
+        kw["budget"] = min(kw.get("budget", 32), 32)
+    return sc.replace(dies_per_mcm=sc.dies_per_mcm[:1], m=sc.m[:1],
+                      cpo_ratio=sc.cpo_ratio[:1], fabrics=sc.fabrics[:1],
+                      refine_top=min(sc.refine_top, 3),
+                      keep_top=min(sc.keep_top, 32) or 32,
+                      validate_top=min(sc.validate_top, 2), driver_kw=kw)
+
+
+def build_scenarios(args) -> List[Scenario]:
+    over = _overrides(args)
+    out: List[Scenario] = []
+    if args.scenario:
+        for path in args.scenario:
+            d = Scenario.load(path).to_dict()
+            kw = dict(over)
+            if "driver_kw" in kw:
+                kw["driver_kw"] = {**d.get("driver_kw", {}),
+                                   **kw["driver_kw"]}
+            d.update(kw)
+            out.append(Scenario.from_dict(d))
+    else:
+        base = dict(over)
+        base.setdefault("total_tflops", 4e6)
+        models = [base.pop("model", "qwen3_moe_235b_a22b")]
+        if models == ["all"]:
+            from repro_torch.configs import ARCH_IDS
+            models = list(ARCH_IDS)
+        out = [Scenario(model=m, **base) for m in models]
+    if args.quick:
+        out = [_quick(sc) for sc in out]
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Reporting
+# ---------------------------------------------------------------------------
+def _print_study(res: StudyResult, top: int):
+    sc = res.scenario
+    prov = res.provenance
+    n_eval = prov.get("grid_evaluated", prov.get("n_evaluated", 0))
+    print(f"\n=== {sc.name}: driver={sc.driver} C={sc.total_tflops:.0e} "
+          f"— {n_eval} points evaluated in "
+          f"{res.timings.get('total_s', 0.0):.2f}s ===")
+    if res.best is None:
+        print("  no feasible design point")
+        return
+    shown = 0
+    for r in res.records:
+        if not r.feasible or (res.points and r.source == "refined"):
+            continue
+        m = r.metrics
+        print(f"  {m['throughput']:.3e} tok/s  mfu={m['mfu']:.2f}  "
+              f"${m['cost'] / 1e6:7.1f}M {m['power'] / 1e6:5.2f}MW  "
+              f"{r.fabric:6s} m={r.mcm['m']:<2d} "
+              f"r={r.mcm['cpo_ratio']:.1f} {r.strategy}")
+        shown += 1
+        if shown >= top:
+            break
+    for r in res.records:
+        if r.source == "refined":
+            print(f"  refined: {r.throughput:.3e} tok/s  "
+                  f"${r.metrics['cost'] / 1e6:.1f}M  "
+                  f"(exact topo/OCS cost)")
+    print(f"  pareto set ({'/'.join(sc.objectives)}): "
+          f"{len(res.pareto)} non-dominated records")
+    rr = res.provenance.get("event_rerank")
+    if rr:
+        wins = ", ".join(f"{k}:{v}" for k, v in
+                         sorted(rr["winners"].items()))
+        print(f"  event re-rank: {rr['n_reranked']} rows x "
+              f"{len(rr['candidates'])} schedule candidates "
+              f"(winners {wins})")
+    val = res.provenance.get("validate")
+    if val:
+        err = val.get("max_abs_err")
+        fb = val.get("n_scalar_fallback", 0)
+        tail = (f", {fb}/{val['n_validated']} scalar-engine fallback"
+                if fb else "")
+        print(f"  event-validated {val['n_validated']} records "
+              f"({val['schedule']}): max |fidelity err| "
+              f"{err * 100:.1f}%{tail}" if err is not None else
+              f"  event-validated 0 records")
+
+
+def _out_path(out: str, sc: Scenario, n_studies: int) -> Path:
+    p = Path(out)
+    if p.suffix == ".json" and n_studies == 1:
+        return p
+    return p / f"{sc.name}.json"
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    argv = sys.argv[1:] if argv is None else list(argv)
+    ap = build_parser()
+    args = ap.parse_args(argv)
+    try:
+        scenarios = build_scenarios(args)
+    except (ValueError, KeyError, OSError) as e:
+        ap.exit(EXIT_USAGE, f"{ap.prog}: error: {e}\n")
+
+    all_feasible = True
+    for sc in scenarios:
+        try:
+            res = Study(sc).run(device=args.device)
+        except ValueError as e:      # driver_kw / grid-shape misuse
+            ap.exit(EXIT_USAGE, f"{ap.prog}: error: {e}\n")
+        _print_study(res, args.top)
+        path = res.save(_out_path(args.out, sc, len(scenarios)))
+        print(f"  wrote {path}")
+        if res.best is None:
+            all_feasible = False
+    return EXIT_OK if all_feasible else EXIT_INFEASIBLE
+
+
+if __name__ == "__main__":
+    sys.exit(main())
