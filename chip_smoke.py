@@ -33,16 +33,29 @@ Phases, in order; any failure raises and exits non-zero:
              from the same weights: prefill logits and the first 8 greedy
              tokens must agree.
 4. study  - ``repro_torch``'s ``Study.run()`` on the card for every
-   committed scenario of the batched drivers and two with the schedule as
-   a search dimension (validate_top 8), counting every kernel's launches
-   (set to 0 just before, read just after: the wavefront's must equal the
-   studies' replay calls, the serving kernels' 0), each held against the
-   CPU path (identical records, metrics within 1e-12), with the study.*
-   spans' times;
+   committed scenario (the batched drivers' and the outer MCM search's
+   ``paper_qwen3_outer``), ``paper_qwen3`` under the ``railx`` driver,
+   two with the schedule as a search dimension (validate_top 8) and the
+   outer search with its event replay (``event_replay`` 2, every schedule
+   a candidate), counting every kernel's launches (set to 0 just before,
+   read just after: the wavefront's must equal the studies' replay calls,
+   the serving kernels' 0), each held against the CPU path (identical
+   records, metrics within 1e-12; the outer search's trace round by
+   round), with the study.* and outer.round spans' times;
 5. scan   - ``batched_simulate`` on the BENCH_dse.json TinyLlama cell
    (3,072 design points) tiled to 30,720, 307,200 and 3,072,000 rows, on
    the card and through the CPU path, the whole call and the cost terms
-   alone, card and CPU equal bit for bit; prints the crossover.
+   alone, card and CPU equal bit for bit; prints the crossover;
+6. calibrate - ``python -m repro_torch.cli calibrate`` on the card over
+   the full grid, writing ``build/calib_h100.json``: every count set to 0
+   just before, read just after; flash (forward, and forward + torch-op
+   backward), ``moe_gmm``, ``ssd_scan`` and ``rmsnorm`` must each launch
+   warm-up + reps times per grid point, every row of theirs must name its
+   hand kernel (read from the launch counts), no measured rate nor
+   fitted peak may pass the card's float32 or HBM peak, and no fit's half
+   may sit at the top of its search (a rate that never bent); then
+   ``paper_qwen3`` on the fitted constants, on the card and on the CPU
+   path, with identical records.
 
 The last lines are the card's name and power limit (nvidia-smi), one JSON
 line ``{"kernels": [...]}`` and ``{"ok": true, "device": {...}}``.
@@ -921,19 +934,33 @@ def phase_wavefront():
                        if n != WAVEFRONT_TIMED]}
 
 
-# every committed scenario the batched drivers run (all but
-# paper_qwen3_outer, whose driver is not ported), then two with the
-# schedule as a search dimension and validation of the top 8
-STUDY_CASES = [(name, {}) for name in (
+# every committed scenario (the batched drivers' and the outer search's),
+# paper_qwen3 under the RailX driver, two with the schedule as a search
+# dimension and validation of the top 8, and the outer search with its
+# fused event replay over every schedule: (label, scenario, overrides)
+STUDY_CASES = [(name, name, {}) for name in (
     "gemma3_dense", "llava_vlm", "mixtral_nsga2", "paper_qwen3",
-    "paper_qwen3_validate", "tinyllama_quick", "whisper_encdec",
-    "zamba2_hybrid")] + [
-    (name, {"schedule": "search", "validate_top": 8})
+    "paper_qwen3_outer", "paper_qwen3_validate", "tinyllama_quick",
+    "whisper_encdec", "zamba2_hybrid")] + [
+    ("paper_qwen3+railx", "paper_qwen3", {"driver": "railx",
+                                          "driver_kw": {}}),
+    ("paper_qwen3_outer+event_replay", "paper_qwen3_outer", {
+        "driver_kw": {"inner_budget": 48, "rounds": 8, "walkers": 8,
+                      "event_replay": 2}, "schedule": "search"})] + [
+    (f"{name}+search", name, {"schedule": "search", "validate_top": 8})
     for name in ("tinyllama_quick", "paper_qwen3_validate")]
 STUDY_TOL = 1e-12        # card vs CPU path: the same float64 operations
 STUDY_SPANS = ("study.run", "study.scan", "study.event_rerank",
-               "study.refine", "study.validate_top")
+               "study.refine", "study.validate_top", "outer.round")
 SCAN_TILES = (1, 10, 100, 1000)   # x the BENCH_dse.json TinyLlama sweep
+# The cost terms' bytes per design point: in, 25 float64 columns (vols,
+# alloc, inv, hops, intra: 5 parallelism groups each), 5 bool (inter_mask)
+# and 12 float64 scalars; out, 10 float64 (t_coll's 5, step, t_mem,
+# exposed, dp_exposed, bubble).  Over HBM they bound the terms on the
+# card; over PCIe (Gen5 x16, 64 GB/s a direction) they bound the copies.
+TERMS_IN_BYTES_PER_ROW = 25 * 8 + 5 * 1 + 12 * 8
+TERMS_OUT_BYTES_PER_ROW = 10 * 8
+PCIE_BYTES_PER_S = 64e9
 
 
 def _compare_studies(label: str, card, cpu) -> float:
@@ -957,6 +984,8 @@ def _compare_studies(label: str, card, cpu) -> float:
                 worst = max(worst, abs(x - y) / max(abs(y), 1e-300))
     check(worst <= STUDY_TOL, f"{label}: metrics differ by {worst} "
           f"relative (tol {STUDY_TOL})")
+    check(card.traces == cpu.traces,
+          f"{label}: the outer search's trace differs from the CPU path's")
     return worst
 
 
@@ -964,9 +993,9 @@ def phase_study():
     from repro_torch.api import Scenario, Study
     from repro_torch.obs.trace import tracing
 
-    scenarios = [(f"{n}+search" if over else n,
+    scenarios = [(label,
                   Scenario.load(ROOT / "scenarios" / f"{n}.json").replace(
-                      **over)) for n, over in STUDY_CASES]
+                      **over)) for label, n, over in STUDY_CASES]
     Study(scenarios[-1][1]).run(device="cuda")   # CUDA context, first build
     torch.cuda.synchronize()
     card = {}
@@ -1016,6 +1045,9 @@ def phase_study():
                 "winners"),
             "validated": res.provenance.get("validate", {}).get(
                 "n_validated"),
+            "outer": {k: res.provenance[k] for k in (
+                "n_rounds", "n_variants", "n_sim", "n_cache_hits",
+                "n_refined", "n_event_replayed") if k in res.provenance},
             "max_rel_diff_vs_cpu": worst})
     return launches
 
@@ -1068,6 +1100,11 @@ def phase_scan():
                   for f in ("feasible", "step_time", "throughput", "mfu",
                             "power", "t_mem", "t_coll")),
               f"scan {len(tb)} rows: card and CPU path agree bit for bit")
+        n_in = TERMS_IN_BYTES_PER_ROW * len(tb)
+        n_out = TERMS_OUT_BYTES_PER_ROW * len(tb)
+        rec["terms_bound_ms"] = (n_in + n_out) / PEAK_BYTES_PER_S * 1e3
+        rec["terms_bound_by"] = "bytes"
+        rec["terms_pcie_ms"] = (n_in + n_out) / PCIE_BYTES_PER_S * 1e3
         rec["card_speedup"] = rec["cpu_ms"] / rec["cuda_ms"]
         rec["terms_card_speedup"] = rec["terms_cpu_ms"] / rec["terms_cuda_ms"]
         sizes.append(rec)
@@ -1076,6 +1113,111 @@ def phase_scan():
     terms_wins = [r["rows"] for r in sizes if r["terms_card_speedup"] > 1.0]
     log("scan", {"card_wins_whole_call_at_rows": wins,
                  "card_wins_terms_at_rows": terms_wins})
+
+
+# 6. calibration on the card: which module counts each profiled kernel's
+# launches (decode_attention is plain torch: no kernel)
+CALIB_MODULES = {"flash_attention_fwd": "flash_attention_fwd",
+                 "flash_attention_bwd": "flash_attention_fwd",
+                 "moe_gmm": "moe_gmm", "ssd": "ssd_scan",
+                 "rmsnorm": "rmsnorm"}
+CALIB_OUT = ROOT / "build" / "calib_h100.json"
+
+
+def phase_calibrate():
+    """``cli calibrate`` on the card (the full grid), its launches, rows
+    and fits; then a study on the fitted constants, card vs CPU path."""
+    from repro_torch import cli
+    from repro_torch.api import Scenario, Study
+    from repro_torch.calib import load_calibration
+
+    mods = _kernel_modules()
+    torch.cuda.synchronize()
+    for m in mods.values():
+        m.launches = 0
+    t0 = time.perf_counter()
+    rc = cli.main(["calibrate", "--device", "cuda", "--out", str(CALIB_OUT)])
+    wall_s = time.perf_counter() - t0
+    launches = {name: m.launches for name, m in mods.items()}
+    check(rc == 0, f"calibrate: exit code {rc}")
+    load_calibration.cache_clear()
+    calib = load_calibration(str(CALIB_OUT))
+    rows = calib["measurements"]
+    expected = {name: 0 for name in mods}
+    for r in rows:
+        mod = CALIB_MODULES.get(r["kernel"])
+        if mod:
+            expected[mod] += 1 + r["reps"]      # one warm-up, then reps
+            check(r["impl"].startswith(f"cuda:{mod}"),
+                  f"calibrate {r['kernel']} x={r['x']}: ran {r['impl']}, "
+                  f"not the hand kernel")
+        else:
+            check(r["impl"] == "torch", f"calibrate {r['kernel']}: "
+                  f"{r['impl']}")
+        check(r["dtype"] == "float32", f"calibrate {r['kernel']}: dtype")
+    log("calibrate", f"main-path launches {launches}; expected {expected}")
+    check(launches == expected, "calibrate: every kernel launched warm-up + "
+          "reps times per grid point")
+    for r in rows:
+        log("calibrate", {k: r[k] for k in ("kernel", "axis", "x", "impl",
+                                            "time_s", "flops_per_s",
+                                            "bytes_per_s")})
+    peaks = {"compute": PEAK_FLOPS[torch.float32],
+             "memory": PEAK_BYTES_PER_S}
+    fits = {}
+    for name, f in sorted(calib["kernels"].items()):
+        rate = "flops_per_s" if f["kind"] == "compute" else "bytes_per_s"
+        m_rows = [r for r in rows if r["kernel"] == name and r["axis"] == "m"]
+        n_rows = [r for r in rows if r["kernel"] == name and r["axis"] == "n"]
+        fits[name] = {"kind": f["kind"], "peak": f["peak"],
+                      "best_measured": max(r[rate] for r in rows
+                                           if r["kernel"] == name),
+                      "card_peak": peaks[f["kind"]],
+                      "m_half": f["m_half"],
+                      # the fit searches half up to 16x the largest x: a
+                      # half there means the rate never bent in the grid
+                      "m_half_at_edge": f["m_half"] >= 16 * max(
+                          r["x"] for r in m_rows) * (1 - 1e-9),
+                      "n_half": f.get("n_half"),
+                      "n_half_at_edge": bool(n_rows) and f["n_half"] >=
+                      16 * max(r["x"] for r in n_rows) * (1 - 1e-9),
+                      "rel_rmse": f["rel_rmse"],
+                      "impl": next(r["impl"] for r in rows
+                                   if r["kernel"] == name)}
+    log("calibrate", {"wall_s": wall_s, "rows": len(rows),
+                      "provenance": calib["provenance"], "fits": fits,
+                      "effective": calib["effective"]})
+    # A fit over the card's peak means the timer or the count is wrong;
+    # a half at the top of the fit's search means the rate never bent in
+    # the grid, so the fitted peak is an extrapolation.
+    for name, f in fits.items():
+        check(f["peak"] < f["card_peak"], f"calibrate {name}: fitted peak "
+              f"{f['peak']:.4g} over the card's {f['card_peak']:.4g}")
+        check(f["best_measured"] < f["card_peak"], f"calibrate {name}: a "
+              f"measured rate {f['best_measured']:.4g} over the card's "
+              f"{f['card_peak']:.4g}")
+        check(not f["m_half_at_edge"] and not f["n_half_at_edge"],
+              f"calibrate {name}: a half at the top of the fit's search "
+              f"(m_half {f['m_half']:.6g}, n_half {f['n_half']})")
+
+    sc = Scenario.load(ROOT / "scenarios" / "paper_qwen3.json").replace(
+        calibration=str(CALIB_OUT))
+    t0 = time.perf_counter()
+    card = Study(sc).run(device="cuda")
+    card_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    cpu = Study(sc).run(device="cpu")
+    cpu_ms = (time.perf_counter() - t0) * 1e3
+    worst = _compare_studies("paper_qwen3+calibrated", card, cpu)
+    check(card.best is not None, "calibrated study: a feasible best point")
+    best = card.records[card.best].metrics
+    log("calibrate", {
+        "scenario": "paper_qwen3+calibrated", "records": len(card.records),
+        "best_throughput": best["throughput"], "best_mfu": best["mfu"],
+        "wall_ms": card_ms, "cpu_path_wall_ms": cpu_ms,
+        "calibration": card.provenance["calibration"],
+        "max_rel_diff_vs_cpu": worst})
+    return launches
 
 
 # the serving paths: arch, serve depth (None: the config's), depth of
@@ -1136,6 +1278,7 @@ def main() -> int:
         by_path[arch] = launches
     by_path["study"] = phase_study()
     phase_scan()
+    by_path["calibrate"] = phase_calibrate()
 
     kernels = []
     for name, rec in records.items():

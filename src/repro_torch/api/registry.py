@@ -84,17 +84,13 @@ for _name in ("exhaustive", "random", "prf", "nsga2"):
     DRIVERS.register(_name)(_batched(_name))
 
 
-def _not_ported(name: str):
-    # registered so that scenario validation sees the reference's names
-    def run(scenario, device):
-        raise NotImplementedError(
-            f"driver {name!r} is not ported to repro_torch yet "
-            f"(ROADMAP A3: dse/outer.py and core/optimizer.py::"
-            f"railx_search); the batched drivers are "
-            f"exhaustive, random, prf and nsga2")
-    run.__name__ = f"run_{name.replace('-', '_')}"
-    return run
+@DRIVERS.register("chiplight-outer")
+def _run_chiplight_outer(scenario, device):
+    from repro_torch.api.study import _run_outer
+    return _run_outer(scenario, device)
 
 
-for _name in ("chiplight-outer", "railx"):
-    DRIVERS.register(_name)(_not_ported(_name))
+@DRIVERS.register("railx")
+def _run_railx_driver(scenario, device):
+    from repro_torch.api.study import _run_railx
+    return _run_railx(scenario, device)

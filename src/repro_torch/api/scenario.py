@@ -59,9 +59,11 @@ class Scenario:
     fabrics: Tuple[str, ...] = ("oi",)
     reuse: bool = True
     hw: Dict[str, Any] = field(default_factory=dict)        # HW overrides
-    # path to a CALIB.json artifact ("" = off).  Validated as the
-    # reference validates it; running such a scenario needs the port's
-    # calibration (ROADMAP A5) and raises until then (``build_hw``).
+    # path to a CALIB.json artifact (repro_torch.calib): ``build_hw``
+    # starts from ``HW.calibrated(...)`` — the measured effective
+    # constants — instead of DEFAULT_HW ("" = off).  Explicit ``hw``
+    # overrides still win on top; ``Study.run`` stamps the constants
+    # into ``StudyResult.provenance["calibration"]``.
     calibration: str = ""
 
     # -- search ----------------------------------------------------------
@@ -165,12 +167,10 @@ class Scenario:
                         global_batch=self.global_batch, **self.workload)
 
     def build_hw(self) -> HW:
-        if self.calibration:
-            raise NotImplementedError(
-                f"scenario {self.name!r} sets calibration="
-                f"{self.calibration!r}; the port's calibration is not "
-                f"ported yet (ROADMAP A5)")
         base = DEFAULT_HW
+        if self.calibration:
+            from repro_torch.calib import load_calibration
+            base = HW.calibrated(load_calibration(self.calibration))
         return dataclasses.replace(base, **self.hw) if self.hw else base
 
     def design_space(self, alloc_mode: str = "chiplight") -> DesignSpace:

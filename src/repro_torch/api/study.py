@@ -6,14 +6,18 @@ vectorized ``repro_torch.dse`` sweep ranks the whole grid with its cost
 terms on the device, the event re-rank and ``validate_top`` run the
 pipeline wavefront there, then the vectorized refinement derives exact
 topologies and OCS-inclusive costs for the top points.
-``chiplight-outer`` and ``railx`` are registered and raise until they
-are ported (ROADMAP A3).
+``chiplight-outer`` runs the population-based batched outer search
+(``repro_torch.dse.outer``; ``driver_kw={"method": "scalar"}`` is the
+legacy single-walker nested optimiser), and ``railx`` sweeps the same
+grids under the uniform RailX link split with exact RailX-topology
+refinement (``method="scalar"`` for the legacy loop).  Every path
+produces the same ``StudyResult``.
 """
 from __future__ import annotations
 
 import time
 from dataclasses import dataclass
-from typing import Optional
+from typing import List, Optional
 
 import numpy as np
 
@@ -54,6 +58,13 @@ class Study:
                                      device=device)
             result.provenance["metrics"] = _metrics_block(
                 result, ms, time.perf_counter() - t0)
+            if sc.calibration:
+                # the run executed on measured constants — stamp them
+                # (plus where they were measured) next to the metrics
+                # block so the artifact is self-describing
+                from repro_torch.calib import calibration_block
+                result.provenance["calibration"] = \
+                    calibration_block(sc.calibration)
         return result
 
 
@@ -174,17 +185,25 @@ def _stamp_rerank(records, rerank: dict) -> dict:
             "winners": winners}
 
 
-def _run_batched(sc: Scenario, driver: str, device) -> StudyResult:
+def _run_batched(sc: Scenario, driver: str, device,
+                 alloc_mode: str = "chiplight",
+                 engine: Optional[str] = None) -> StudyResult:
     from repro_torch.dse.search import (refine_sweep_rows, refine_top_points,
                                   sweep_design_space)
     t0 = time.perf_counter()
-    space = sc.design_space()
-    kw = _batched_driver_kw(sc, driver)
+    space = sc.design_space(alloc_mode=alloc_mode)
+    kw = _batched_driver_kw(sc, driver) if alloc_mode == "chiplight" \
+        else {}
     with span("study.scan", driver=driver):
         sweep = sweep_design_space(space, driver=driver, device=device,
                                    seed=sc.seed, **kw)
     kept = _sweep_keep_indices(sweep, sc)
-    kept, rerank = _event_rerank_stage(sc, sweep, kept, device)
+    # the event engine replicates the chiplight link allocation — the
+    # railx sweep's analytic rows answer a different alloc, so the
+    # schedule re-rank only runs on the chiplight path
+    rerank = None
+    if alloc_mode == "chiplight":
+        kept, rerank = _event_rerank_stage(sc, sweep, kept, device)
     records = records_from_sweep(sweep, kept)
     rerank_prov = _stamp_rerank(records, rerank) if rerank else None
     t1 = time.perf_counter()
@@ -225,7 +244,8 @@ def _run_batched(sc: Scenario, driver: str, device) -> StudyResult:
         traces=[],
         timings=timings,
         provenance=_provenance(sc, device,
-                               engine=f"dse.sweep[{driver}]+refine",
+                               engine=engine
+                               or f"dse.sweep[{driver}]+refine",
                                grid_evaluated=len(sweep),
                                n_sim=int(sweep.n_sim),
                                n_cache_hits=int(sweep.n_cache_hits),
@@ -236,6 +256,140 @@ def _run_batched(sc: Scenario, driver: str, device) -> StudyResult:
         result.provenance["event_rerank"] = rerank_prov
     result.pareto = result.pareto_indices()
     return result
+
+
+# ---------------------------------------------------------------------------
+# Outer search (population / scalar) + RailX baseline
+# ---------------------------------------------------------------------------
+def _points_result(sc: Scenario, device, pts: List, traces, engine: str,
+                   elapsed: float, source: str = "scalar",
+                   **extra_prov) -> StudyResult:
+    # the outer search revisits MCM variants, re-evaluating identical
+    # design points — keep one record per (strategy, mcm, fabric)
+    n_raw = len(pts)
+    seen, unique = set(), []
+    for p in pts:
+        s = p.strategy
+        key = (s.tp, s.dp, s.pp, s.cp, s.ep, s.n_micro, p.mcm.n_mcm,
+               p.mcm.x, p.mcm.y, p.mcm.m, p.mcm.cpo_ratio, p.fabric)
+        if key not in seen:
+            seen.add(key)
+            unique.append(p)
+    pts = sorted(unique, key=lambda p: -p.throughput)
+    kept = pts if sc.keep_top == 0 else pts[: sc.keep_top]
+    records = [record_from_point(p, source=source) for p in kept]
+    result = StudyResult(
+        scenario=sc, records=records, best=0 if records else None,
+        points=kept, traces=list(traces),
+        timings={"total_s": elapsed},
+        provenance=_provenance(sc, device, engine=engine,
+                               n_evaluated=n_raw, n_unique=len(pts),
+                               n_kept=len(kept), **extra_prov))
+    result.pareto = result.pareto_indices()
+    return result
+
+
+def _require_single_cell(sc: Scenario):
+    """The outer search explores FROM one MCM start point (it moves
+    dies/m/cpo itself); a multi-valued grid would be silently dropped,
+    so reject it instead."""
+    multi = [ax for ax in ("dies_per_mcm", "m", "cpo_ratio", "fabrics")
+             if len(getattr(sc, ax)) > 1]
+    if multi:
+        raise ValueError(
+            f"driver {sc.driver!r} starts from a single MCM cell; give "
+            f"one value per axis (got multiple for {multi})")
+
+
+def _run_outer(sc: Scenario, device) -> StudyResult:
+    """``chiplight-outer``: the batched population search by default;
+    ``driver_kw={"method": "scalar"}`` (implying ``walkers=1``) is the
+    legacy single-walker nested optimiser, bit-identical per seed.  The
+    legacy ``outer_iters`` knob maps onto ``rounds``.  The scans' cost
+    terms and the event replay's wavefront run on ``device``."""
+    from repro_torch.dse.outer import outer_search
+    _require_single_cell(sc)
+    kw = dict(sc.driver_kw)
+    method = kw.pop("method", "population")
+    rounds = kw.pop("rounds", kw.pop("outer_iters", 8))
+    walkers = kw.pop("walkers", 1 if method == "scalar" else 8)
+    inner_budget = kw.pop("inner_budget", 48)
+    inner_method = kw.pop("inner_method", "batched")
+    refine_per_variant = kw.pop("refine_per_variant", 8)
+    event_replay = kw.pop("event_replay", 0)
+    event_schedule = kw.pop("event_schedule", None)
+    if event_schedule is not None:
+        import warnings
+        warnings.warn(
+            "driver_kw 'event_schedule' is deprecated; set "
+            "Scenario.schedule (one name, a comma list, or 'search') — "
+            "the one source of truth for every event-engine consumer",
+            DeprecationWarning, stacklevel=3)
+    else:
+        event_schedule = sc.schedule_list()
+    if kw:
+        raise ValueError(
+            f"driver 'chiplight-outer' does not accept driver_kw "
+            f"{sorted(kw)}; accepted: ['event_replay', 'event_schedule', "
+            f"'inner_budget', 'inner_method', 'method', 'outer_iters', "
+            f"'refine_per_variant', 'rounds', 'walkers']")
+    # knobs that only exist on the OTHER method would be silent no-ops
+    dropped = ("refine_per_variant" if method == "scalar"
+               else "inner_method")
+    if dropped in sc.driver_kw:
+        raise ValueError(f"driver_kw {dropped!r} has no effect with "
+                         f"method={method!r}")
+    t0 = time.perf_counter()
+    res = outer_search(
+        sc.build_workload(), sc.total_tflops,
+        dies_per_mcm=sc.dies_per_mcm[0], m0=sc.m[0], cpo0=sc.cpo_ratio[0],
+        rounds=rounds, walkers=walkers, inner_budget=inner_budget,
+        fabric=sc.fabrics[0], reuse=sc.reuse, hw=sc.build_hw(),
+        seed=sc.seed, method=method, inner_method=inner_method,
+        refine_per_variant=refine_per_variant, device=device,
+        event_replay=event_replay, event_schedule=event_schedule)
+    engine = ("core.chiplight_optimize" if method == "scalar"
+              else "dse.outer_search[population]")
+    source = "scalar" if method == "scalar" else "refined"
+    return _points_result(sc, device, res.history, res.outer_trace, engine,
+                          time.perf_counter() - t0, source=source,
+                          **res.stats)
+
+
+def _run_railx(sc: Scenario, device) -> StudyResult:
+    """``railx``: batched sweep over the SAME grids as the chiplight
+    drivers (``alloc_mode="railx"`` — uniform 50/50 two-rail-dim link
+    split, the scan's cost terms on ``device``) + exact RailX-topology
+    refinement of the winners; ``driver_kw={"method": "scalar"}`` is the
+    legacy single-cell scalar loop, on the host."""
+    kw = dict(sc.driver_kw)
+    method = kw.pop("method", "batched")
+    if method == "scalar":
+        from repro_torch.core.mcm import mcm_from_compute
+        from repro_torch.core.optimizer import railx_search
+        _require_single_cell(sc)
+        budget = kw.pop("budget", 64)
+        if kw:
+            raise ValueError(f"driver 'railx' (scalar) does not accept "
+                             f"driver_kw {sorted(kw)}; accepted: "
+                             f"['budget', 'method']")
+        t0 = time.perf_counter()
+        mcm = mcm_from_compute(sc.total_tflops, sc.dies_per_mcm[0],
+                               sc.m[0], cpo_ratio=sc.cpo_ratio[0],
+                               hw=sc.build_hw())
+        _, pts = railx_search(sc.build_workload(), mcm, reuse=sc.reuse,
+                              budget=budget, hw=sc.build_hw(),
+                              seed=sc.seed)
+        return _points_result(sc, device, pts, [], "core.railx_search",
+                              time.perf_counter() - t0)
+    if method != "batched":
+        raise ValueError(f"driver 'railx' method must be 'batched' or "
+                         f"'scalar', got {method!r}")
+    if kw:
+        raise ValueError(f"driver 'railx' does not accept driver_kw "
+                         f"{sorted(kw)}; accepted: ['method']")
+    return _run_batched(sc, "exhaustive", device, alloc_mode="railx",
+                        engine="dse.sweep[railx]+refine")
 
 
 def _provenance(sc: Scenario, device, **kw) -> dict:

@@ -13,12 +13,25 @@ zoo), prints the best points + Pareto summary, and writes one versioned
 scan's cost terms, the event wavefront) runs on ``--device``: the card
 by default, which must be there; ``--device cpu`` runs the plain paths.
 
-The reference CLI's subcommands (``validate``, ``timeline``, ``bench``,
-``calibrate``, ``lint``) and ``--trace`` come with later parts of the
-port (ROADMAP A4, A5).
+``calibrate`` is the execution-grounded loop (``repro_torch.obs.profile``
++ ``repro_torch.calib``): time the port's kernels on ``--device`` (on
+the card, the hand-written CUDA kernels in float32), fit the analytic
+cost constants (effective peak FLOP/s, HBM bytes/s, and the
+``M/(M+half)`` efficiency curves), and write the schema-versioned
+artifact (``CALIB_h100.json`` by default; a scenario's
+``calibration`` field reads it) — or, with ``--check``, re-measure and
+gate drift against an artifact.
+
+    PYTHONPATH=src python -m repro_torch.cli calibrate --device cpu --quick
+
+The reference CLI's other subcommands (``validate``, ``timeline``,
+``bench``, ``lint``) and ``--trace`` are not ported.
 
 Exit codes: 0 ok; 2 bad arguments; 3 when a study found NO feasible
-design point (every sweep cell infeasible).
+design point (every sweep cell infeasible); ``calibrate``: 1, and
+nothing written, when on the card a fitted peak is over the card's or
+a fit's half is at the top of its search (``calib.card_fit_faults``),
+and with ``--check`` when any gated constant drifted beyond tolerance.
 """
 from __future__ import annotations
 
@@ -243,8 +256,104 @@ def _out_path(out: str, sc: Scenario, n_studies: int) -> Path:
     return p / f"{sc.name}.json"
 
 
+# ---------------------------------------------------------------------------
+# `calibrate` subcommand — measured kernel constants + the drift gate
+# ---------------------------------------------------------------------------
+def build_calibrate_parser() -> argparse.ArgumentParser:
+    from repro_torch.calib import DEFAULT_CALIB_PATH
+    ap = argparse.ArgumentParser(
+        prog="python -m repro_torch.cli calibrate",
+        description="Execution-grounded calibration (repro_torch.obs."
+                    "profile + repro_torch.calib): run the port's "
+                    "kernels over an (M, N) grid, fit the analytic cost "
+                    "constants (effective peak FLOP/s, HBM bytes/s, and "
+                    "the M/(M+half) efficiency curves), and write the "
+                    "schema-versioned artifact.  --check re-measures "
+                    "and gates per-kernel drift against the artifact "
+                    "instead (exit 1 on breach).")
+    ap.add_argument("--out", default=DEFAULT_CALIB_PATH,
+                    help="calibration artifact path (also the artifact "
+                         "--check compares against)")
+    ap.add_argument("--kernels", type=_csv(str, "--kernels"),
+                    default=None,
+                    help="comma list of kernels (default: all; see "
+                         "repro_torch.obs.profile.PROFILE_KERNELS)")
+    ap.add_argument("--quick", action="store_true",
+                    help="CI grid: drop the most expensive point per "
+                         "kernel, 2 reps")
+    ap.add_argument("--check", action="store_true",
+                    help="drift mode: re-measure and compare against "
+                         "--out instead of rewriting it")
+    ap.add_argument("--device", default="cuda",
+                    help="where the kernels run (default cuda; cpu times "
+                         "the plain versions)")
+    return ap
+
+
+def main_calibrate(argv: List[str]) -> int:
+    from repro_torch.calib import (card_fit_faults, check_drift,
+                                   fit_calibration, load_calibration,
+                                   write_calibration)
+    from repro_torch.obs.profile import profile_kernels
+    ap = build_calibrate_parser()
+    args = ap.parse_args(argv)
+    try:
+        committed = load_calibration(args.out) if args.check else None
+        measurements = profile_kernels(args.kernels, quick=args.quick,
+                                       device=args.device)
+        calib = fit_calibration(measurements, quick=args.quick,
+                                device=args.device)
+    except (ValueError, KeyError, OSError) as e:
+        ap.exit(EXIT_USAGE, f"{ap.prog}: error: {e}\n")
+    eff = calib["effective"]
+    prov = calib["provenance"]
+    print(f"\n=== calibrate: {len(measurements)} measurements, "
+          f"{len(calib['kernels'])} kernels "
+          f"({prov['backend']}/{prov.get('card', prov['device'])}) ===")
+    impls = {r["kernel"]: r["impl"] for r in measurements}
+    for name, f in sorted(calib["kernels"].items()):
+        unit = "FLOP/s" if f["kind"] == "compute" else "B/s"
+        tail = (f"  n_half={f['n_half']:7.1f}" if "n_half" in f else "")
+        print(f"  {name:22s} {f['kind']:7s} peak {f['peak']:.3e} {unit}"
+              f"  m_half={f['m_half']:7.1f}  "
+              f"resid {f['rel_rmse'] * 100:4.1f}%{tail}  [{impls[name]}]")
+    if "die_tflops" in eff:
+        print(f"  effective: die_tflops={eff['die_tflops']:.4f} "
+              f"gemm_m_half={eff.get('gemm_m_half', 0.0):.1f} "
+              f"gemm_n_half={eff.get('gemm_n_half', 0.0):.1f}")
+    if "hbm_bw_per_die" in eff:
+        print(f"  effective: hbm_bw_per_die="
+              f"{eff['hbm_bw_per_die']:.3e} B/s")
+    faults = card_fit_faults(calib) if prov["backend"] == "cuda" else []
+    for f in faults:
+        print(f"  FAIL {f}")
+    if faults:
+        print("FAIL: the card's fits cannot stand; nothing written")
+        return 1
+
+    if args.check:
+        print(f"\ndrift vs {args.out}:")
+        rows = check_drift(calib, committed)
+        n_fail = sum(not r["ok"] for r in rows)
+        n_gated = sum(r["asserted"] for r in rows)
+        if n_fail:
+            print(f"FAIL: {n_fail}/{n_gated} gated constants drifted "
+                  f"beyond tolerance")
+            return 1
+        print(f"OK: all {n_gated} gated constants within tolerance")
+        return EXIT_OK
+
+    try:
+        print(f"  wrote {write_calibration(calib, args.out)}")
+    except (ValueError, OSError) as e:
+        ap.exit(EXIT_USAGE, f"{ap.prog}: error: {e}\n")
+    return EXIT_OK
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     argv = sys.argv[1:] if argv is None else list(argv)
+    if argv and argv[0] == "calibrate":
+        return main_calibrate(argv[1:])
     ap = build_parser()
     args = ap.parse_args(argv)
     try:

@@ -1,22 +1,31 @@
-"""ChipLight cross-layer optimisation (paper §IV-B, Fig 6): the scalar
-oracle pieces the study's batched path needs.
+"""ChipLight cross-layer optimisation (paper §IV-B, Fig 6).
 
-* ``enumerate_strategies`` / ``_divisors`` — the strategy grid;
-* ``evaluate_point`` — the full scalar treatment of one design point
-  (traffic, intra-MCM mapping, traffic-proportional link allocation with
-  dynamic reuse, fewest-OCS physical topology, simulator, exact cost);
-* the RailX baseline (``railx_topology`` / ``railx_evaluate_point`` /
-  ``railx_search``).
+Nested flow:
+  * inner search — PARALLEL-CENTRIC para-topo co-exploration: scan the
+    ENTIRE strategy grid with the vectorized batched simulator
+    (repro_torch.dse, its cost terms on the chosen device), then give
+    the top-throughput candidates the full scalar treatment — project
+    traffic (network-independent), map TP (+ maybe one more group)
+    intra-MCM, allocate links traffic-proportionally (Eq. l_p), apply
+    dynamic link reuse (Eq. 1), derive the fewest-OCS physical topology,
+    evaluate with the simulator;
+  * outer search — heuristic planner (§IV-B-3) reads simulator logs
+    (compute util, memory pressure, comm bottleneck) and moves the MCM
+    architecture (N, x, y, m, r) to break the bottleneck or trim waste
+    (``propose_moves`` / ``propose_mcm``; the population search lives in
+    ``repro_torch.dse.outer``).
 
-The nested inner/outer optimiser (``inner_search``, the MCM planner,
-``chiplight_optimize``) belongs to the ``chiplight-outer`` driver and
-comes with it (ROADMAP A3).
+Outputs a performance-cost Pareto frontier over (MCM arch, topology,
+strategy) plus the best point; ``railx_search`` is the RailX baseline.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
+
+import numpy as np
 
 from repro_torch.core.cost import cluster_cost
 from repro_torch.core.hardware import HW, DEFAULT_HW
@@ -132,6 +141,210 @@ def evaluate_point(w: Workload, s: Strategy, mcm: MCMArch,
     cost = cluster_cost(mcm, topo, fabric=fabric, hw=hw).total
     return DesignPoint(strategy=s, mcm=mcm, topo=topo, sim=sim, cost=cost,
                        fabric=fabric)
+
+
+# ---------------------------------------------------------------------------
+# Inner search
+# ---------------------------------------------------------------------------
+def inner_search(w: Workload, mcm: MCMArch, fabric: str = "oi",
+                 reuse: bool = True, budget: int = 64,
+                 hw: Optional[HW] = None, seed: int = 0,
+                 method: str = "batched", device="cuda"
+                 ) -> Tuple[Optional[DesignPoint], List[DesignPoint]]:
+    """Parallel-centric para-topo search; returns (best, evaluated).
+
+    The batched engine (repro_torch.dse) scans the ENTIRE strategy grid
+    in one vectorized call, its cost terms on ``device`` — no surrogate
+    sampling needed at the strategy level — then the top candidates by
+    batched throughput get the full scalar treatment (physical-topology
+    derivation, exact OCS cost).  The scan is topology-blind, so a
+    candidate can still fail physical-rail derivation; the ranking is
+    walked (bounded at ``4 * budget``) until ``budget`` points survive,
+    rather than returning nothing.
+
+    ``method="batched"`` (default) gives the survivors the scalar
+    treatment vectorized (``repro_torch.dse.search.refine_cell_rows``:
+    one batched call + memoized rail derivation for the whole walk
+    window); ``method="scalar"`` is the original per-point
+    ``evaluate_point`` loop, kept as the parity reference.  ``seed`` is
+    kept for API compatibility; both paths are deterministic.
+    """
+    del seed
+    hw = hw or mcm.hw
+    # lazy import: repro_torch.dse depends on repro_torch.core, not vice
+    # versa
+    from repro_torch.dse.batched_sim import batched_simulate
+    from repro_torch.dse.space import enumerate_strategy_batch
+
+    batch = enumerate_strategy_batch(w, mcm)
+    if not len(batch):
+        return None, []
+    res = batched_simulate(w, batch, mcm, fabric=fabric, reuse=reuse, hw=hw,
+                           device=device)
+    feas = np.nonzero(res.feasible)[0]
+    ranked = feas[np.argsort(-res.throughput[feas], kind="stable")]
+    cand = ranked[: budget * 4]
+
+    if method == "batched":
+        from repro_torch.dse.search import refine_cell_rows
+        # two passes: most candidates survive rail derivation, so refine
+        # one budget's worth first and top up only on a shortfall
+        evaluated = refine_cell_rows(w, mcm, batch, cand[:budget],
+                                     fabric=fabric, reuse=reuse, hw=hw,
+                                     device=device)
+        if len(evaluated) < budget and len(cand) > budget:
+            evaluated += refine_cell_rows(w, mcm, batch, cand[budget:],
+                                          fabric=fabric, reuse=reuse,
+                                          hw=hw, device=device)
+            evaluated = evaluated[:budget]
+    elif method == "scalar":
+        evaluated = []
+        for i in cand:
+            s = Strategy(tp=int(batch.tp[i]), dp=int(batch.dp[i]),
+                         pp=int(batch.pp[i]), cp=int(batch.cp[i]),
+                         ep=int(batch.ep[i]), n_micro=int(batch.n_micro[i]))
+            pt = evaluate_point(w, s, mcm, fabric, reuse, hw)
+            if pt is not None:
+                evaluated.append(pt)
+                if len(evaluated) >= budget:
+                    break
+    else:
+        raise ValueError(f"unknown inner_search method {method!r}; "
+                         f"use 'batched' or 'scalar'")
+    best = max(evaluated, key=lambda p: p.throughput, default=None)
+    return best, evaluated
+
+
+# ---------------------------------------------------------------------------
+# Outer search: heuristic planner over MCM architecture
+# ---------------------------------------------------------------------------
+def propose_moves(cur: MCMArch, logs: Optional[Dict[str, float]],
+                  rng: np.random.Generator) -> List[MCMArch]:
+    """Bottleneck-driven candidate moves (paper §IV-B-3), as a PURE move
+    generator: reads the best point's simulator ``logs`` (None = the
+    inner search found nothing feasible) and returns every architecture
+    the heuristics propose.  Keeps C ~ constant by moving dies between
+    packages when scale changes.  ``rng`` is consumed only by the
+    last-resort random jitter move, in the same order the single-walker
+    planner always used."""
+    if logs is None:
+        # infeasible inner search — most often memory capacity: raise m
+        return [dataclasses.replace(cur, m=min(cur.m + 2, 16))]
+    moves = []
+    if logs.get("mem_pressure", 0) > 0.85 or logs.get("hbm_bw_bound"):
+        moves.append(dataclasses.replace(cur, m=min(cur.m + 2, 16)))
+    if logs.get("nop_bound"):
+        if cur.m > 2:
+            moves.append(dataclasses.replace(cur, m=cur.m - 1))
+        if cur.dies_per_mcm > 4:
+            moves.append(_rescale_dies(cur, cur.dies_per_mcm // 2))
+    if logs.get("oi_bound"):
+        if cur.cpo_ratio < 0.95:
+            moves.append(dataclasses.replace(
+                cur, cpo_ratio=min(cur.cpo_ratio + 0.1, 1.0)))
+        moves.append(_rescale_dies(cur, cur.dies_per_mcm * 2))
+    if not moves and logs.get("compute_util", 0) > 0.75:
+        # healthy: trim over-provisioned resources to cut cost
+        if cur.cpo_ratio > 0.3:
+            moves.append(dataclasses.replace(
+                cur, cpo_ratio=cur.cpo_ratio - 0.1))
+        if cur.m > 4:
+            moves.append(dataclasses.replace(cur, m=cur.m - 1))
+    if not moves:
+        moves.append(dataclasses.replace(
+            cur, m=int(np.clip(cur.m + rng.integers(-2, 3), 1, 16))))
+    return moves
+
+
+def propose_mcm(cur: MCMArch, best: Optional[DesignPoint],
+                rng: np.random.Generator) -> MCMArch:
+    """Single-walker planner step: generate the bottleneck-driven moves
+    and pick one uniformly (the pre-population behaviour, bit-for-bit:
+    same rng consumption order)."""
+    moves = propose_moves(cur, best.sim.logs if best is not None else None,
+                          rng)
+    if best is None:
+        return moves[0]
+    pick = moves[int(rng.integers(len(moves)))]
+    return pick if pick.feasible() else cur
+
+
+def _rescale_dies(cur: MCMArch, new_dies: int) -> MCMArch:
+    """Move dies between packages at constant cluster compute.  A target
+    die count that cannot tile ``n_devices`` exactly would silently
+    shrink (or grow) the cluster — reject the move instead (the caller
+    treats the unchanged architecture as a no-op candidate)."""
+    total = cur.n_devices
+    new_dies = max(1, new_dies)
+    n_mcm = max(int(round(total / new_dies)), 1)
+    if n_mcm * new_dies != total:
+        return cur
+    x = int(math.sqrt(new_dies))
+    while new_dies % x:
+        x -= 1
+    return dataclasses.replace(cur, x=x, y=new_dies // x, n_mcm=n_mcm)
+
+
+# ---------------------------------------------------------------------------
+# Pareto utilities + full nested optimisation
+# ---------------------------------------------------------------------------
+def pareto_front(points: List[DesignPoint]) -> List[DesignPoint]:
+    """Max throughput, min cost — cost-ascending, one representative per
+    exact (cost, throughput) pair.  The dominance test is the ONE Pareto
+    engine, ``repro_torch.dse.pareto.pareto_mask`` (same semantics the
+    batched sweeps use)."""
+    if not points:
+        return []
+    from repro_torch.dse.pareto import pareto_mask   # lazy: no cycle
+    obj = np.array([[p.throughput, p.cost] for p in points], np.float64)
+    idx = np.nonzero(pareto_mask(obj, [True, False]))[0]
+    idx = sorted(idx, key=lambda i: (points[i].cost, -points[i].throughput))
+    front, seen = [], set()
+    for i in idx:
+        key = (points[i].cost, points[i].throughput)
+        if key not in seen:
+            seen.add(key)
+            front.append(points[i])
+    return front
+
+
+@dataclass
+class DSEResult:
+    best: Optional[DesignPoint]
+    frontier: List[DesignPoint]
+    history: List[DesignPoint] = field(default_factory=list)
+    outer_trace: List[Dict] = field(default_factory=list)
+    # engine bookkeeping (points simulated, cache hits, ...) — filled by
+    # repro_torch.dse.outer; empty for directly-assembled results
+    stats: Dict = field(default_factory=dict)
+
+
+def chiplight_optimize(w: Workload, total_tflops: float,
+                       dies_per_mcm: int = 16, m0: int = 6,
+                       outer_iters: int = 8, inner_budget: int = 48,
+                       fabric: str = "oi", reuse: bool = True,
+                       hw: HW = DEFAULT_HW, seed: int = 0,
+                       cpo0: float = 0.6,
+                       inner_method: str = "batched",
+                       device="cuda") -> DSEResult:
+    """Nested outer/inner optimisation (paper §IV-B) — compatibility
+    wrapper for the single-walker scalar flow, now hosted by
+    ``repro_torch.dse.outer.outer_search(walkers=1, method="scalar")``.
+
+    One ``np.random.default_rng(seed)`` drives every ``propose_mcm``
+    move (the inner scan is deterministic), so the whole run is
+    reproducible from ``(w, total_tflops, ..., seed)`` alone.  The MCM
+    proposed by the LAST planner move is evaluated too — ``outer_trace``
+    has ``outer_iters + 1`` entries, one per inner search.  The inner
+    scans' cost terms run on ``device``.
+    """
+    from repro_torch.dse.outer import outer_search   # lazy: no cycle
+    return outer_search(w, total_tflops, dies_per_mcm=dies_per_mcm,
+                        m0=m0, rounds=outer_iters,
+                        inner_budget=inner_budget, walkers=1,
+                        fabric=fabric, reuse=reuse, hw=hw, seed=seed,
+                        cpo0=cpo0, method="scalar",
+                        inner_method=inner_method, device=device)
 
 
 # ---------------------------------------------------------------------------

@@ -18,3 +18,5 @@ from repro_torch.dse.search import (DRIVERS, BatchedEvaluator,  # noqa: F401
                               search_exhaustive, search_nsga2,
                               search_prf_ucb, search_random,
                               sweep_design_space)
+from repro_torch.dse.outer import (VariantEval, mcm_variant_key,  # noqa: F401
+                             outer_search)

@@ -8,7 +8,9 @@ tensors only (bfloat16 on the tensor cores through wgmma and TMA, float32
 on the FMA pipes); ``flash_attention_plain`` is the same function in plain
 PyTorch, which the CPU path and the comparisons on the card use.  Both
 take q (B, Hq, S, D) and k/v (B, Hkv, S, D) and return
-(o (B, Hq, S, D) in q.dtype, lse (B, Hq, S) in float32).
+(o (B, Hq, S, D) in q.dtype, lse (B, Hq, S) in float32, natural log).
+``flash_attention_bwd_plain`` is the gradient from the saved o and lse,
+in torch ops on either device (the reference has no Pallas backward).
 """
 from __future__ import annotations
 
@@ -89,6 +91,68 @@ def flash_attention_plain(q, k, v, window=None, *, causal=True, softcap=0.0,
         m = m_new
     lsafe = torch.where(l == 0.0, 1.0, l)
     return (acc / lsafe[..., None]).to(q.dtype), m + torch.log(lsafe)
+
+
+def _pick_block(s: int, want: int) -> int:
+    """Largest divisor of s that is <= want (handles S like 1500)."""
+    b = min(want, s)
+    while s % b:
+        b -= 1
+    return b
+
+
+def flash_attention_bwd_plain(q, k, v, o, lse, do, window=None, *,
+                              causal=True, softcap=0.0, scale=None,
+                              block=128):
+    """The forward's gradient in plain PyTorch, from its saved o and lse:
+    one pass over query blocks of ``block`` rows, with dk and dv summed
+    over the blocks and over each GQA head group, in float32 (the
+    reference's ``_fa_bwd_xla``).  Returns (dq, dk, dv) in the inputs'
+    dtypes."""
+    b, hq, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    if scale is None:
+        scale = d ** -0.5
+    group = hq // hkv
+    bq = _pick_block(sq, block)
+    win = sk + bq if window is None else int(window)
+    kf = k.float().repeat_interleave(group, dim=1)     # (b, hq, sk, d)
+    vf = v.float().repeat_interleave(group, dim=1)
+    cols = torch.arange(sk, device=q.device)[None, :]
+    # delta_i = rowsum(dO * O)
+    delta = (do.float() * o.float()).sum(-1)
+    dk = torch.zeros((b, hkv, sk, d), dtype=torch.float32, device=q.device)
+    dv = torch.zeros_like(dk)
+    dq_blocks = []
+    for q0 in range(0, sq, bq):
+        qb = q[:, :, q0:q0 + bq].float()
+        dob = do[:, :, q0:q0 + bq].float()
+        s_raw = torch.einsum("bhqd,bhkd->bhqk", qb, kf) * scale
+        if softcap:
+            t = torch.tanh(s_raw / softcap)
+            s = softcap * t
+            dcap = 1.0 - t * t
+        else:
+            s, dcap = s_raw, None
+        rows = q0 + torch.arange(bq, device=q.device)[:, None] + (sk - sq)
+        mask = (rows - cols) < win
+        if causal:
+            mask &= cols <= rows
+        s = torch.where(mask[None, None], s, NEG_INF)
+        p = torch.exp(s - lse[:, :, q0:q0 + bq, None])
+        dv_q = torch.einsum("bhqk,bhqd->bhkd", p, dob)
+        dp = torch.einsum("bhqd,bhkd->bhqk", dob, vf)
+        ds = p * (dp - delta[:, :, q0:q0 + bq, None])
+        if dcap is not None:
+            ds = ds * dcap
+        ds = torch.where(mask[None, None], ds, 0.0) * scale
+        dq_blocks.append(torch.einsum("bhqk,bhkd->bhqd", ds, kf))
+        dk_q = torch.einsum("bhqk,bhqd->bhkd", ds, qb)
+        # GQA: sum gradients over the head group
+        dk = dk + dk_q.reshape(b, hkv, group, sk, d).sum(2)
+        dv = dv + dv_q.reshape(b, hkv, group, sk, d).sum(2)
+    dq = torch.cat(dq_blocks, 2)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 @functools.cache

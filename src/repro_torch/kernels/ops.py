@@ -3,12 +3,16 @@
 Each op dispatches on the device of its tensors: CPU tensors go to the
 plain PyTorch version, CUDA tensors launch the hand-written kernel, which
 raises on what it does not take.  Nothing routes a CUDA tensor to a
-plain version.  Forward only: serving needs no gradient.
+plain version.  ``flash_attention`` is differentiable: its forward (the
+kernel or plain version) saves o and lse and its backward is torch ops
+(the reference's custom VJP); the other ops are forward only.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels.flash_attention import \
+    flash_attention_bwd_plain as _fa_bwd
 from repro_torch.kernels.flash_attention import \
     flash_attention_fwd as _fa_cuda
 from repro_torch.kernels.flash_attention import \
@@ -33,22 +37,47 @@ def _is_cuda(*tensors) -> bool:
                      f"{sorted(kinds)}")
 
 
+def _fa_forward(q, k, v, window, causal, softcap, scale, block):
+    if _is_cuda(q, k, v):
+        return _fa_cuda(q, k, v, window, causal=causal, softcap=softcap,
+                        scale=scale)
+    return _fa_plain(q, k, v, window, causal=causal, softcap=softcap,
+                     scale=scale, block=block)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The forward of ``flash_attention`` with the reference's custom
+    VJP: the backward reads the forward's o and lse."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, window, causal, softcap, scale, block):
+        o, lse = _fa_forward(q, k, v, window, causal, softcap, scale, block)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.cfg = (window, causal, softcap, scale, block)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        window, causal, softcap, scale, block = ctx.cfg
+        dq, dk, dv = _fa_bwd(q, k, v, o, lse, do.contiguous(), window,
+                             causal=causal, softcap=softcap, scale=scale,
+                             block=block)
+        return dq, dk, dv, None, None, None, None, None
+
+
 def flash_attention(q, k, v, *, window=None, causal=True, softcap=0.0,
                     scale=None, block=128):
     """Self-attention.  q: (B,Hq,S,D); k/v: (B,Hkv,S,D) -> o (B,Hq,S,D).
 
     ``window``: None (full) or an int >= 1.  ``block`` is the key tile of
-    the plain version; the kernel's tiles are fixed.
+    the plain version and the query tile of the backward; the kernel's
+    tiles are fixed.  Differentiable in q, k and v.
     """
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    if _is_cuda(q, k, v):
-        o, _ = _fa_cuda(q, k, v, window, causal=causal, softcap=softcap,
-                        scale=scale)
-    else:
-        o, _ = _fa_plain(q, k, v, window, causal=causal, softcap=softcap,
-                         scale=scale, block=block)
-    return o
+    return _FlashAttention.apply(q, k, v, window, causal, softcap, scale,
+                                 block)
 
 
 def decode_attention(q, k_cache, v_cache, pos, *, window=None, softcap=0.0,

@@ -47,8 +47,16 @@ KNOWN_COUNTERS = frozenset({
     "dse.cache.fallback_rows",
     "dse.cache.hits",
     "dse.cache.sim",
+    "outer.event_replayed",
+    "outer.variant_cache.hits",
+    "outer.variants_evaluated",
+    "profile.kernels",
+    "profile.measurements",
 })
-KNOWN_GAUGES: frozenset = frozenset()
+KNOWN_GAUGES = frozenset({
+    "profile.achieved_gbs",
+    "profile.achieved_tflops",
+})
 
 
 class Metrics:

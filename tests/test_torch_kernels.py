@@ -226,3 +226,52 @@ def test_rmsnorm_wrapper_refuses_cpu_tensors_any_width(d, dtype):
         port_rmsnorm.rmsnorm(torch.zeros(2, d, dtype=t_dt),
                              torch.ones(d, dtype=t_dt))
     assert port_rmsnorm.launches == 0
+
+
+GRAD_CASES = [
+    # hq, hkv, window, softcap, causal
+    (4, 2, None, 0.0, True),      # causal GQA
+    (4, 4, 16, 0.0, True),        # sliding window
+    (4, 2, None, 30.0, True),     # softcap
+    (4, 2, 24, 20.0, True),       # window + softcap
+    (4, 2, None, 0.0, False),     # non-causal
+]
+
+
+@pytest.mark.parametrize("hq,hkv,win,cap,causal", GRAD_CASES)
+def test_flash_gradients_vs_jax_grad(hq, hkv, win, cap, causal):
+    """dq, dk, dv of the port's flash_attention (CPU: plain forward, the
+    torch-op backward on its saved o and lse) against ``jax.grad`` of the
+    reference's custom VJP on its xla path, float32, within 1e-5."""
+    import jax
+
+    from repro.kernels import ops as ref_ops
+    q, k, v, do = _inputs([(1, hq, 64, 32), (1, hkv, 64, 32),
+                           (1, hkv, 64, 32), (1, hq, 64, 32)], np.float32)
+
+    def loss(q_, k_, v_):
+        o = ref_ops.flash_attention(q_, k_, v_, window=win, causal=causal,
+                                    softcap=cap, backend="xla")
+        return (o * do).sum()
+
+    want = jax.grad(loss, argnums=(0, 1, 2))(q, k, v)
+    ts = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
+    o = ops.flash_attention(*ts, window=win, causal=causal, softcap=cap)
+    got = torch.autograd.grad((o * torch.from_numpy(do)).sum(), ts)
+    for name, a, b in zip(("dq", "dk", "dv"), want, got):
+        assert b.shape == a.shape and b.dtype == torch.float32
+        np.testing.assert_allclose(b.numpy(), np.asarray(a), rtol=0,
+                                   atol=1e-5, err_msg=name)
+
+
+def test_flash_forward_without_grad_is_the_plain_forward():
+    """Where no gradient is asked for, flash_attention is exactly the
+    forward the serving paths run (no autograd node, same values)."""
+    q, k, v = (torch.from_numpy(a) for a in _inputs(
+        [(1, 4, 64, 32), (1, 2, 64, 32), (1, 2, 64, 32)], np.float32))
+    o = ops.flash_attention(q, k, v, window=16)
+    o_p, _ = port_flash.flash_attention_plain(q, k, v, 16)
+    assert o.grad_fn is None and torch.equal(o, o_p)
+    with torch.no_grad():
+        o2 = ops.flash_attention(q.requires_grad_(), k, v, window=16)
+    assert o2.grad_fn is None and torch.equal(o2, o_p)

@@ -1,6 +1,8 @@
 """The port's ``Study.run()`` against the reference's numpy path, on the
 CPU: every committed scenario the batched drivers run, and two with the
-pipeline schedule as a search dimension and validation of the top 8.
+pipeline schedule as a search dimension and validation of the top 8
+(the outer search's scenario and the RailX driver are held in
+``test_torch_outer.py``).
 
 Records are required in the same order with the same strategy, MCM,
 fabric and source, every metric within 1e-9 relative (the bar of
@@ -44,13 +46,16 @@ def _path(name):
 
 
 def test_every_batched_scenario_is_covered():
-    """All committed scenarios but the outer search's run a batched
-    driver."""
+    """Every committed scenario is held against the reference: the
+    batched drivers' here, the outer search's in test_torch_outer.py."""
+    from test_torch_outer import CASES as OUTER_CASES
     names = sorted(p.stem for p in (ROOT / "scenarios").glob("*.json"))
     outer = [n for n in names if Scenario.load(_path(n)).driver
              not in ("exhaustive", "random", "prf", "nsga2")]
     assert outer == ["paper_qwen3_outer"]
     assert sorted(set(names) - set(outer)) == BATCHED
+    assert set(outer) <= {n for n, over in OUTER_CASES.values()
+                          if not over}
 
 
 @pytest.mark.parametrize("name,over", CASES,
@@ -89,21 +94,6 @@ def test_study_matches_reference(name, over):
                                                   rel=RTOL)
     assert got.provenance["device"] == "cpu"
     assert got.provenance["backend"] == "numpy"
-
-
-@pytest.mark.parametrize("driver", ["chiplight-outer", "railx"])
-def test_unported_drivers_raise(driver):
-    sc = Scenario(model="tinyllama_1_1b", total_tflops=1e6, driver=driver,
-                  dies_per_mcm=(16,), m=(6,), cpo_ratio=(0.6,))
-    with pytest.raises(NotImplementedError, match="ROADMAP A3"):
-        Study(sc).run(device="cpu")
-
-
-def test_calibrated_scenario_raises():
-    sc = Scenario.load(_path("tinyllama_quick")).replace(
-        calibration="CALIB.json")
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-        Study(sc).run(device="cpu")
 
 
 def test_scenario_validates_backend_as_the_reference():
