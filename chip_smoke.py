@@ -15,13 +15,19 @@ Phases, in order; any failure raises and exits non-zero:
    1f1b, interleaved, mixed keys up to S 16 x L 542, and a key too large
    for shared memory), and time the kernel, the plain version and the one
    PyTorch call that computes the same function (the gmm also with ids
-   outside [0, E), the wavefront with key indices outside [0, U));
-3. three serving paths, each with seeded random weights at full width,
+   outside [0, E), the wavefront with key indices outside [0, U); the
+   SSD's final state of every case against the plain version's, with
+   its launches and workspace);
+3. five serving paths, each with seeded random weights at full width,
    bf16: TinyLlama-1.1B (22 layers; flash + rmsnorm), Zamba2-7B (81 Mamba2
    layers + 13 applications of the shared attention block; ssd_scan +
-   flash at head_dim 112 + rmsnorm) and Qwen3-MoE-235B-A22B cut to 8 of
+   flash at head_dim 112 + rmsnorm), Qwen3-MoE-235B-A22B cut to 8 of
    its 94 layers, which one 80 GB card holds (128 experts, top-8; moe_gmm
-   + flash at head_dim 128 + rmsnorm with qk-norm).  For each:
+   + flash at head_dim 128 + rmsnorm with qk-norm), Mamba2-780M (48
+   layers; ssd_scan with its final state, handed to decode, + rmsnorm)
+   and LLaVA-NeXT-34B cut to 12 of its 60 layers (576 prefix embeddings
+   in the prompt; flash with 56 query heads over 8 KV heads + rmsnorm).
+   For each:
    serve   - ``repro_torch.launch.serve.generate`` with batch 8, a
              1024-token prompt and 64 new tokens, counting kernel launches
              (every count set to 0 just before, read just after);
@@ -29,9 +35,10 @@ Phases, in order; any failure raises and exits non-zero:
              time by kernel, device idle share);
    check   - the same port at full width and cut depth (TinyLlama 2
              layers, Zamba2 7 = one period + one leftover layer, Qwen3-MoE
-             1) in float32, on the card and on the CPU (plain versions)
-             from the same weights: prefill logits and the first 8 greedy
-             tokens must agree.
+             1, Mamba2 2, LLaVA 1 with a 640-token prompt) in float32, on
+             the card and on the CPU (plain versions) from the same
+             weights and prefix embeddings: prefill logits and the first
+             8 greedy tokens must agree.
 4. study  - ``repro_torch``'s ``Study.run()`` on the card for every
    committed scenario (the batched drivers' and the outer MCM search's
    ``paper_qwen3_outer``), ``paper_qwen3`` under the ``railx`` driver,
@@ -280,6 +287,9 @@ FLASH_CASES = [
     ("d256_fp32", 1, 2, 1, 130, 256, None, 0.0, False, torch.float32),
     # head_dim 128: Qwen3-MoE's prefill shape (64 query heads, 4 kv heads)
     ("d128_qwen3", 8, 64, 4, 1024, 128, None, 0.0, True, torch.bfloat16),
+    # LLaVA-NeXT-34B's prefill shape: 56 query heads over 8 KV heads, a
+    # GQA group of 7 (not a power of two)
+    ("d128_llava", 8, 56, 8, 1024, 128, None, 0.0, True, torch.bfloat16),
     # float32 and bfloat16 run different kernels (FMA pipes, tensor
     # cores): each fp32-only shape above has a bf16 twin
     ("d32_bf16", 1, 8, 2, 130, 32, None, 30.0, False, torch.bfloat16),
@@ -302,7 +312,8 @@ FLASH_CASES = [
      torch.bfloat16),
 ]
 # cases timed as well as checked; "main" is TinyLlama's prefill shape
-FLASH_TIMED = ("main", "d112_zamba2", "d256_gemma2", "d128_qwen3")
+FLASH_TIMED = ("main", "d112_zamba2", "d256_gemma2", "d128_qwen3",
+               "d128_llava")
 # tolerances: bf16 outputs differ by one bf16 rounding (2e-2 as in the
 # reference's kernel sweeps); fp32 by the order of sums and exp2/log.
 FLASH_TOL = {torch.bfloat16: (2e-2, 1e-3), torch.float32: (1e-4, 1e-4)}
@@ -368,6 +379,13 @@ RMSNORM_CASES = [
     ("zamba2_gate_norm", (SERVE_BATCH * SERVE_PROMPT, 7168), torch.bfloat16,
      0.0),
     ("zamba2_gate_norm_decode", (SERVE_BATCH, 1, 7168), torch.bfloat16, 0.0),
+    # Mamba2-780M's d_model (ln) and its gate norm over d_inner = 3072;
+    # LLaVA-NeXT-34B's d_model (ln1, ln2, the final norm), the width of
+    # Zamba2's gate norm
+    ("mamba2_ln", (SERVE_BATCH * SERVE_PROMPT, 1536), torch.bfloat16, 0.0),
+    ("mamba2_gate_norm", (SERVE_BATCH * SERVE_PROMPT, 3072), torch.bfloat16,
+     0.0),
+    ("llava_ln", (SERVE_BATCH * SERVE_PROMPT, 7168), torch.bfloat16, 0.0),
     # the kernel's other widths: a row of 8 vectors in the 16-lane kernel
     # (the reduced configs' widths; lanes past the row masked), 32 vectors
     # a lane in fp32 at 4096, and a row too wide for registers (two passes)
@@ -436,12 +454,23 @@ SSD_CASES = [
     ("p128_bf16", 1, 256, 4, 128, 1, 64, 64, torch.bfloat16),
     # 17 chunks: the state passed over more chunks than any served shape
     ("chunks17_bf16", 1, 1088, 8, 64, 1, 64, 64, torch.bfloat16),
+    # Mamba2-780M's prefill shape (batch 8, prompt 1024), timed with and
+    # without the final state
+    ("mamba2_serve", 8, 1024, 48, 64, 1, 128, 128, torch.bfloat16),
+    # the FMA kernel with two B/C groups
+    ("groups2_fp32", 1, 512, 16, 64, 2, 64, 128, torch.float32),
 ]
-SSD_TIMED = ("zamba2", "mamba2_widths", "mamba2_bf16")
+SSD_TIMED = ("zamba2", "mamba2_widths", "mamba2_bf16", "mamba2_serve")
 # bf16: one bf16 rounding of the output (2^-8 relative); fp32: the cumsum
 # of dt*A runs in another order (a warp scan), and at |L| ~ 1e3 its fp32
 # rounding moves exp(L_i - L_j) by ~1e-4 relative
 SSD_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-3}
+# The final state is an fp32 sum over the chunks on both paths (no bf16
+# rounding of the output; the bf16 path feeds x o w to the tensor cores as
+# hi + lo parts, 16 bits of mantissa): held relative to its largest
+# element, max |state - plain| <= 1e-3 * max |plain|, which leaves room
+# for the cumsum order's ~1e-4 relative move of exp(L_Q - L_j).
+SSD_STATE_RTOL = 1e-3
 
 
 def _ssd_flops(bb, s, h, p, n, chunk) -> float:
@@ -452,6 +481,17 @@ def _ssd_flops(bb, s, h, p, n, chunk) -> float:
     pairs = chunk * (chunk + 1) // 2
     per_chunk = 2.0 * pairs * (n + p) + 2.0 * chunk * n * p
     return bb * h * (nc * per_chunk + (nc - 1) * 2.0 * chunk * n * p)
+
+
+def _ssd_workspace_expected(bb, s, h, p, n, chunk, dt, state: bool) -> int:
+    """Bytes the bf16 kernels write in their workspace: fp32 S_c of all
+    chunks but the last (256-byte aligned), then fp32 exp(L_Q) of those
+    chunks, or of all of them with the final state; fp32 takes none."""
+    nc = s // chunk
+    if dt != torch.bfloat16 or (nc < 2 and not state):
+        return 0
+    slots = -(-bb * h * (nc - 1) * p * n * 4 // 256) * 256
+    return slots + bb * h * (nc - 1 + state) * 4
 
 
 def phase_ssd(gen):
@@ -465,35 +505,73 @@ def phase_ssd(gen):
                                 generator=gen)).to(dt)
         cm = (0.3 * torch.randn(bb, s, g, n, device="cuda",
                                 generator=gen)).to(dt)
+        n0 = sk.launches
         y = sk.ssd_scan(x, dtv, a, bm, cm, chunk=chunk)
-        y_p = sk.ssd_plain(x, dtv, a, bm, cm, chunk=chunk)
+        n1 = sk.launches
+        y_s, st = sk.ssd_scan(x, dtv, a, bm, cm, chunk=chunk,
+                              return_state=True)
+        n2 = sk.launches
+        y_p, st_p = sk.ssd_plain(x, dtv, a, bm, cm, chunk=chunk,
+                                 return_state=True)
         torch.cuda.synchronize()
         err = (y.float() - y_p.float()).abs().max().item()
         tol = SSD_TOL[dt]
         check(bool(torch.isfinite(y.float()).all()), f"ssd {name}: finite")
         check(torch.allclose(y.float(), y_p.float(), rtol=tol, atol=tol),
               f"ssd {name}: kernel vs plain {err} (rtol=atol={tol})")
+        # the final state: the same y bit for bit, the state within its
+        # relative tolerance, three launches in bf16 whatever the chunks
+        check(torch.equal(y, y_s), f"ssd {name}: y with the state is y")
+        check(tuple(st.shape) == (bb, h, p, n) and st.dtype == torch.float32
+              and bool(torch.isfinite(st).all()),
+              f"ssd {name}: a finite (Bb, H, P, N) float32 state")
+        st_scale = st_p.abs().max().item()
+        st_err = (st - st_p).abs().max().item()
+        check(st_err <= SSD_STATE_RTOL * st_scale,
+              f"ssd {name}: final state vs plain {st_err} (max |state| "
+              f"{st_scale}, rtol {SSD_STATE_RTOL})")
+        bf16 = dt == torch.bfloat16
+        launched = (n1 - n0, n2 - n1)
+        check(launched == ((3 if s // chunk > 1 else 1) if bf16 else 1,
+                           3 if bf16 else 1),
+              f"ssd {name}: launches without / with the state {launched}")
+        ws = (sk.workspace_bytes(x, bm, chunk=chunk),
+              sk.workspace_bytes(x, bm, chunk=chunk, return_state=True))
+        check(ws == tuple(_ssd_workspace_expected(bb, s, h, p, n, chunk, dt,
+                                                  state)
+                          for state in (False, True)),
+              f"ssd {name}: workspace bytes {ws} are what the kernels "
+              f"write")
         rec = {"case": name, "shape": [bb, s, h, p, g, n], "chunk": chunk,
                "dtype": str(dt), "max_abs_err": err, "tol": tol,
-               "max_abs_y": y_p.float().abs().max().item()}
+               "max_abs_y": y_p.float().abs().max().item(),
+               "state_max_abs_err": st_err, "max_abs_state": st_scale,
+               "state_rtol": SSD_STATE_RTOL, "launches": launched,
+               "workspace_bytes": ws}
         if name in SSD_TIMED:
             es = x.element_size()
             nbytes = (2 * x.numel() + bm.numel() + cm.numel()) * es \
                 + (dtv.numel() + a.numel()) * 4
             flops = _ssd_flops(bb, s, h, p, n, chunk)
             rec["bound_ms"], rec["bound_by"] = bound_ms(flops, nbytes, dt)
+            # with the state: its fp32 (Bb, H, P, N) written once more
+            rec["state_bound_ms"], rec["state_bound_by"] = bound_ms(
+                flops, nbytes + st.numel() * 4, dt)
             # the bf16 kernels' workspace is written and read twice (S_c,
             # then the carried states over them): the kernels' bytes, not
             # the function's
-            ws = sk.workspace_bytes(x, bm, chunk=chunk)
-            rec["workspace_bytes"] = ws
             rec["bound_with_workspace_ms"] = bound_ms(
-                flops, nbytes + 4 * ws, dt)[0]
+                flops, nbytes + 4 * ws[0], dt)[0]
             rec["ms"] = time_ms(lambda: sk.ssd_scan(x, dtv, a, bm, cm,
                                                     chunk=chunk), 10)
+            rec["state_ms"] = time_ms(lambda: sk.ssd_scan(
+                x, dtv, a, bm, cm, chunk=chunk, return_state=True), 10)
             rec["tflops"] = flops / rec["ms"] / 1e9
             rec["device_ms_by_kernel"] = device_ms_by_kernel(
                 lambda: sk.ssd_scan(x, dtv, a, bm, cm, chunk=chunk), 10)
+            rec["state_device_ms_by_kernel"] = device_ms_by_kernel(
+                lambda: sk.ssd_scan(x, dtv, a, bm, cm, chunk=chunk,
+                                    return_state=True), 10)
             rec["plain_ms"] = time_ms(lambda: sk.ssd_plain(x, dtv, a, bm, cm,
                                                            chunk=chunk), 3)
             rec["library_ms"] = None   # no single PyTorch call computes SSD
@@ -645,6 +723,12 @@ def expected_launches(cfg) -> dict:
     """Kernel launches of one ``generate`` call of SERVE_GEN tokens: flash
     and the SSD's kernels in prefill once, rmsnorm and moe_gmm in prefill
     and every decode step."""
+    if cfg.family == "ssm":
+        # per layer its norm + the gate norm, one final norm; the SSD with
+        # the final state runs three kernels in bf16 whatever the chunks
+        return {"flash_attention_fwd": 0,
+                "rmsnorm": (2 * cfg.n_layers + 1) * SERVE_GEN,
+                "ssd_scan": 3 * cfg.n_layers, "moe_gmm": 0, "wavefront": 0}
     if cfg.family == "hybrid":
         n_apps = cfg.n_layers // cfg.hybrid_period
         # per SSM layer: its norm + the gate norm; per application of the
@@ -657,7 +741,8 @@ def expected_launches(cfg) -> dict:
         return {"flash_attention_fwd": n_apps, "rmsnorm": n_norms * SERVE_GEN,
                 "ssd_scan": ssd_kernels * cfg.n_layers, "moe_gmm": 0,
                 "wavefront": 0}
-    # per layer ln1, ln2 and, with qk-norm, one launch each for q and k
+    # dense, MoE and VLM: per layer ln1, ln2 and, with qk-norm, one launch
+    # each for q and k
     norms = 2 + (2 if cfg.attn.qk_norm else 0)
     return {"flash_attention_fwd": cfg.n_layers,
             "rmsnorm": (norms * cfg.n_layers + 1) * SERVE_GEN, "ssd_scan": 0,
@@ -672,14 +757,15 @@ def phase_serve(arch: str, depth):
     from repro_torch.models import build_model
 
     cfg = get_config(arch)
-    full_depth = cfg.n_layers
+    full_depth, full_gb = cfg.n_layers, 2 * cfg.param_count() / 1e9
     if depth is not None:
         cfg = dataclasses.replace(cfg, n_layers=depth)
     ex = exec_config(cfg, torch.bfloat16, "cuda")
     model = build_model(cfg).init(SEED, ex)
     n_params = sum(p.numel() for p in model.parameters())
     log("serve", f"{cfg.name}: {cfg.n_layers} of {full_depth} layers, "
-        f"d_model {cfg.d_model}, {n_params / 1e9:.3f} B params in bf16")
+        f"d_model {cfg.d_model}, {n_params / 1e9:.3f} B params in bf16 "
+        f"({full_gb:.2f} GB at full depth)")
     # first call: cuBLAS and allocator warm-up, not counted
     generate(cfg, ex, SERVE_PROMPT, 4, SERVE_BATCH, SEED, model=model)
 
@@ -1229,6 +1315,13 @@ PATHS = (
     ("zamba2-7b", None, 7, 256),
     # 8 of 94 layers: 21.15 B params, 42.3 GB in bf16 (all 94 are 470 GB)
     ("qwen3-moe-235b-a22b", 8, 1, 128),
+    # all 48 layers (1.6 GB in bf16); the prefill's final states go to
+    # decode; the check's prompt is two SSD chunks
+    ("mamba2-780m", None, 2, 256),
+    # 12 of 60 layers (7.61 B params, 15.2 GB in bf16; all 60 are 68.8 GB
+    # before the KV cache); the check's prompt is longer than the 576
+    # prefix positions
+    ("llava-next-34b", 12, 1, 640),
 )
 SOURCES = {
     # kernel: (source, the TPU kernel it replaces)
@@ -1296,7 +1389,9 @@ def main() -> int:
             "other_shapes": [
                 {k: r[k] for k in ("case", "shape", "dtype", "ms", "plain_ms",
                                    "bound_ms", "bound_by", "library_ms",
-                                   "max_abs_err")}
+                                   "max_abs_err", "state_ms",
+                                   "state_bound_ms", "state_max_abs_err")
+                 if k in r}
                 for r in rec.get("shapes", [])]})
     log("done", f"all phases in {time.perf_counter() - t_start:.1f} s")
     print(card_line())

@@ -3,8 +3,9 @@
 ``params_from_jax(tree, cfg)`` takes the reference's parameter pytree as
 numpy arrays (layers stacked on axis 0, linear weights laid out (in, out))
 and returns a state dict for the port's model of ``cfg.family``
-(``transformer.Transformer`` or ``hybrid.Hybrid``), whose linear weights
-are (out, in): each is transposed here.  The SSM's ``conv_w`` and the
+(``transformer.Transformer`` for dense, MoE and VLM, ``hybrid.Hybrid``,
+``ssm_lm.SSMLM``), whose linear weights are (out, in): each is
+transposed here.  The SSM's ``conv_w`` and the
 experts' (E, in, out) ``w1``, ``w3``, ``w2`` keep their layout.
 """
 from __future__ import annotations
@@ -57,11 +58,12 @@ def _ssm(p: dict, i: int, pre: str) -> dict:
 def params_from_jax(tree: dict, cfg: ModelConfig) -> dict:
     layers = tree["layers"]
     sd = {"embed": _t(tree["embed"]), "final_norm": _t(tree["final_norm"])}
-    if cfg.family == "hybrid":
+    if cfg.family in ("hybrid", "ssm"):
         for i in range(cfg.n_layers):
             sd[f"layers.{i}.ln"] = _t(layers["ln"][i])
             sd.update(_ssm(layers["ssm"], i, f"layers.{i}.ssm."))
-        sd.update(_block(tree["shared"], (), "shared.", cfg))
+        if cfg.family == "hybrid":
+            sd.update(_block(tree["shared"], (), "shared.", cfg))
         return sd
     for i in range(cfg.n_layers):
         sd.update(_block(layers, i, f"layers.{i}.", cfg))

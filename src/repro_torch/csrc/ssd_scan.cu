@@ -1,6 +1,7 @@
-// Mamba2 SSD (state-space duality) chunked scan for Hopper: y only, no
-// final state.  x, B, C in fp32 or bf16, dt and A in fp32, y in x's
-// dtype.
+// Mamba2 SSD (state-space duality) chunked scan for Hopper: y and, when
+// the caller asks, the final state (Bb, H, P, N) in fp32, the state after
+// the last chunk (a Mamba2 prefill hands it to decode).  x, B, C in fp32
+// or bf16, dt and A in fp32, y in x's dtype.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/ssd_scan.py::ssd_scan
 // (_ssd_kernel).  For one (batch, head) and one chunk of Q steps, with
@@ -26,13 +27,17 @@
 // bfloat16: the tensor cores, with the work split the Mamba2 way (Dao &
 // Gu 2024, sec. 7) so that every (batch, head, chunk) has blocks of its
 // own; three kernels, launched in order on one stream:
-// 1. chunk_state_kernel, one block per (b, h, chunk) but the last:
+// 1. chunk_state_kernel, one block per (b, h, chunk) but the last (with
+//    the final state, every chunk):
 //    S_c = (x o w)^T B over the chunk's Q rows, w_j = exp(L_Q - L_j) dt_j,
 //    a (P, N) product on mma.sync m16n8k16 with fp32 accumulators, written
-//    in fp32 to a workspace with exp(L_Q).
+//    in fp32 to a workspace with exp(L_Q); the last chunk's S_c goes to the
+//    final-state output instead.
 // 2. state_pass_kernel, parallel over (b, h) and the P * N elements,
 //    sequential over the chunks: state_{c+1} = exp(L_Q,c) state_c + S_c in
-//    fp32, written over S_c as the state entering chunk c + 1.
+//    fp32, written over S_c as the state entering chunk c + 1; with the
+//    final state, one more step over the last chunk, written over its S_c
+//    in the output.  With one chunk and no state, neither kernel runs.
 // 3. chunk_scan_kernel, one block per (b, h, chunk): per 16-row block of
 //    the chunk, G = C B^T on the tensor cores 16 columns at a time (tiles
 //    wholly above the diagonal skipped), scaled in registers by
@@ -51,7 +56,8 @@
 // banks; N is padded with zeros to an instantiated width of 16, 32, 64 or
 // 128.  The workspace (fp32 S_c, then the states over them) is Bb * H *
 // (nc - 1) * P * N * 4 bytes, written and read back twice: at Zamba2's
-// prefill shape 1.7 times the function's own bytes.
+// prefill shape 1.7 times the function's own bytes; then exp(L_Q) for
+// the nc - 1 chunks, or all nc with the final state.
 //
 // float32: the FMA kernel, so fp32 stays the exact check.  One block owns
 // one (batch, head) and loops over the chunks itself, with the state in
@@ -59,7 +65,9 @@
 // shared-memory reads (C and B stored transposed, (N, Q), so those reads
 // are contiguous); the (Q, Q) score matrix is never held whole, only one
 // (Q, 32) column tile of it, which keeps N = 128 (Mamba2) inside shared
-// memory; score tiles wholly above the causal diagonal are skipped.
+// memory; score tiles wholly above the causal diagonal are skipped.  The
+// final state is the shared-memory state after the last chunk, written
+// out (transposed back to (P, N)).
 #include "common.cuh"
 #include "hopper.cuh"
 
@@ -77,6 +85,7 @@ struct Args {
   const float* b;
   const float* c;
   float* y;
+  float* state;   // (Bb, H, P, N) or nullptr
   int s, h, p, g, n, chunk;
 };
 
@@ -346,6 +355,13 @@ __global__ void __launch_bounds__(kThreads) ssd_kernel(Args a) {
     }
     __syncthreads();  // w and the state are no longer read
   }
+
+  if (a.state != nullptr) {
+    float* out = a.state + (static_cast<size_t>(b) * a.h + hh) * p * n;
+    for (int i = tid; i < n * p; i += kThreads) {
+      out[i] = St[(i % n) * p + i / n];
+    }
+  }
 }
 
 int launch_fma(const Args& a, int bb, cudaStream_t stream) {
@@ -384,9 +400,19 @@ struct TcArgs {
   // S_c, (Bb * H, nc - 1, P, N) fp32; the state passing overwrites slot c
   // with the state entering chunk c + 1
   float* chunk_state;
-  float* decay;        // exp(L_Q) of chunk c, (Bb * H, nc - 1)
+  // exp(L_Q) of chunk c, (Bb * H, nd): nd = nc - 1, or nc with the final
+  // state
+  float* decay;
+  // (Bb * H, P, N) fp32 or nullptr: S_c of the last chunk, then the state
+  // after it
+  float* final_state;
   int s, h, p, g, n, chunk, nc;
 };
+
+// Chunks whose S_c and exp(L_Q) the chunk state kernel writes.
+__host__ __device__ inline int state_chunks(const TcArgs& a) {
+  return a.nc - 1 + (a.final_state != nullptr);
+}
 
 // Shared memory, in bytes.  Chunk rows are padded to 16 (qp), P to 16
 // (pp) and N to the instantiated width kn; each bf16 row is 8 elements
@@ -417,17 +443,19 @@ __host__ __device__ inline TcLayout tc_layout(int q, int p, int kn) {
   return l;
 }
 
-// Workspace layout, in bytes: S_c, then the states (fp32), and exp(L_Q)
-// (fp32), 256-byte aligned.
+// Workspace layout, in bytes: S_c of the first nc - 1 chunks, then the
+// states (fp32), and exp(L_Q) of nc - 1 chunks, or nc with the final
+// state (fp32), 256-byte aligned.
 struct Workspace {
   size_t decay, bytes;
 };
 
-inline Workspace workspace(size_t bh, int nc, int p, int n) {
+inline Workspace workspace(size_t bh, int nc, int p, int n,
+                           bool final_state) {
   const size_t per = bh * static_cast<size_t>(nc - 1);
   Workspace w;
   w.decay = (per * p * n * 4 + 255) / 256 * 256;
-  w.bytes = w.decay + per * 4;
+  w.bytes = w.decay + bh * static_cast<size_t>(nc - 1 + final_state) * 4;
   return w;
 }
 
@@ -483,8 +511,9 @@ __device__ __forceinline__ void chunk_cumsum(const float* dt, int stride,
   }
 }
 
-// S_c = (x o w)^T B for one (b, h, chunk c < nc - 1): a (P, N) product over
-// the chunk's rows, warp tiles of 16 rows of P by all kN columns of N.
+// S_c = (x o w)^T B for one (b, h, chunk c < state_chunks): a (P, N)
+// product over the chunk's rows, warp tiles of 16 rows of P by all kN
+// columns of N; the last chunk's (final state only) into the output.
 template <int kNK>
 __global__ void __launch_bounds__(kThreads) chunk_state_kernel(TcArgs a) {
   constexpr int kN = 16 * kNK;
@@ -513,8 +542,8 @@ __global__ void __launch_bounds__(kThreads) chunk_state_kernel(TcArgs a) {
   for (int i = tid; i < lay.qp; i += kThreads) {
     Ws[i] = expf(lq - Ls[i]) * Ws[i];
   }
-  const size_t bhc = (static_cast<size_t>(b) * a.h + hh) * (a.nc - 1) + c;
-  if (tid == 0) a.decay[bhc] = expf(lq);
+  const size_t bh = static_cast<size_t>(b) * a.h + hh;
+  if (tid == 0) a.decay[bh * state_chunks(a) + c] = expf(lq);
   repro::cp_async_wait<0>();
   __syncthreads();  // the tiles have landed, w is set
 
@@ -531,7 +560,9 @@ __global__ void __launch_bounds__(kThreads) chunk_state_kernel(TcArgs a) {
   }
   __syncthreads();
 
-  float* S = a.chunk_state + bhc * a.p * a.n;
+  float* S = c < a.nc - 1
+                 ? a.chunk_state + (bh * (a.nc - 1) + c) * a.p * a.n
+                 : a.final_state + bh * a.p * a.n;
   const int g = lane / 4, t4 = lane % 4;
   for (int pt = warp; pt < lay.pp / 16; pt += kWarps) {
     float acc[2 * kNK][4];
@@ -576,16 +607,18 @@ __global__ void __launch_bounds__(kThreads) chunk_state_kernel(TcArgs a) {
 }
 
 // The state entering chunk c + 1 = exp(L_Q,c) * (the state entering c) +
-// S_c, from a zero state, in fp32, written over S_c.  One thread owns four
-// consecutive elements of one (b, h)'s (P, N) state.
+// S_c, from a zero state, in fp32, written over S_c for the ``steps`` =
+// nc - 1 chunks of the workspace; with ``final_state``, one more step
+// over the last chunk's S_c there.  One thread owns four consecutive
+// elements of one (b, h)'s (P, N) state.
 __global__ void __launch_bounds__(kPassThreads)
 state_pass_kernel(float* __restrict__ s_c, const float* __restrict__ decay,
-                  int pn4, int steps) {
+                  float* __restrict__ final_state, int pn4, int steps) {
   const int e = blockIdx.y * kPassThreads + threadIdx.x;
   if (e >= pn4) return;
-  float4* st = reinterpret_cast<float4*>(s_c) +
-               static_cast<size_t>(blockIdx.x) * steps * pn4 + e;
-  const float* dec = decay + static_cast<size_t>(blockIdx.x) * steps;
+  const size_t bh = blockIdx.x;
+  float4* st = reinterpret_cast<float4*>(s_c) + bh * steps * pn4 + e;
+  const float* dec = decay + bh * (steps + (final_state != nullptr));
   float4 cur = make_float4(0.f, 0.f, 0.f, 0.f);
   for (int c = 0; c < steps; ++c) {
     const size_t at = static_cast<size_t>(c) * pn4;
@@ -594,6 +627,13 @@ state_pass_kernel(float* __restrict__ s_c, const float* __restrict__ decay,
     cur = make_float4(fmaf(cur.x, d, v.x), fmaf(cur.y, d, v.y),
                       fmaf(cur.z, d, v.z), fmaf(cur.w, d, v.w));
     st[at] = cur;
+  }
+  if (final_state != nullptr) {
+    float4* fs = reinterpret_cast<float4*>(final_state) + bh * pn4 + e;
+    const float4 v = *fs;
+    const float d = dec[steps];
+    *fs = make_float4(fmaf(cur.x, d, v.x), fmaf(cur.y, d, v.y),
+                      fmaf(cur.z, d, v.z), fmaf(cur.w, d, v.w));
   }
 }
 
@@ -803,16 +843,16 @@ int launch(const TcArgs& a, int bb, cudaStream_t stream) {
     return static_cast<int>(e);
   });
   if (err) return err;
-  if (a.nc > 1) {
-    chunk_state_kernel<kNK>
-        <<<dim3(a.nc - 1, a.h, bb), kThreads, lay.state_bytes, stream>>>(a);
+  if (state_chunks(a) > 0) {
+    chunk_state_kernel<kNK><<<dim3(state_chunks(a), a.h, bb), kThreads,
+                              lay.state_bytes, stream>>>(a);
     err = static_cast<int>(cudaGetLastError());
     if (err) return err;
     const int pn4 = a.p * a.n / 4;
     state_pass_kernel<<<dim3(bb * a.h, (pn4 + kPassThreads - 1) /
                                            kPassThreads),
-                        kPassThreads, 0, stream>>>(a.chunk_state, a.decay,
-                                                   pn4, a.nc - 1);
+                        kPassThreads, 0, stream>>>(
+        a.chunk_state, a.decay, a.final_state, pn4, a.nc - 1);
     err = static_cast<int>(cudaGetLastError());
     if (err) return err;
   }
@@ -822,17 +862,18 @@ int launch(const TcArgs& a, int bb, cudaStream_t stream) {
 }
 
 int launch_bf16(const void* x, const float* dt, const float* A,
-                const void* B, const void* C, void* y, void* ws, int bb,
-                int s, int h, int p, int g, int n, int chunk,
-                cudaStream_t stream) {
+                const void* B, const void* C, void* y, float* state,
+                void* ws, int bb, int s, int h, int p, int g, int n,
+                int chunk, cudaStream_t stream) {
   const int nc = s / chunk;
-  const Workspace w = workspace(static_cast<size_t>(bb) * h, nc, p, n);
+  const Workspace w =
+      workspace(static_cast<size_t>(bb) * h, nc, p, n, state != nullptr);
   unsigned char* base = static_cast<unsigned char*>(ws);
   const TcArgs a{static_cast<const bf16*>(x), dt, A,
                  static_cast<const bf16*>(B), static_cast<const bf16*>(C),
                  static_cast<bf16*>(y), reinterpret_cast<float*>(base),
-                 reinterpret_cast<float*>(base + w.decay), s, h, p, g, n,
-                 chunk, nc};
+                 reinterpret_cast<float*>(base + w.decay), state, s, h, p,
+                 g, n, chunk, nc};
   const int nk = (n + 15) / 16;   // k16 steps over N
   if (nk <= 1) return launch<1>(a, bb, stream);
   if (nk <= 2) return launch<2>(a, bb, stream);
@@ -844,23 +885,32 @@ int launch_bf16(const void* x, const float* dt, const float* A,
 }  // namespace tc
 }  // namespace
 
-// Bytes of workspace ssd_scan_fwd needs (0 for float32).
+// Bytes of workspace ssd_scan_fwd needs (0 for float32, and for bfloat16
+// with one chunk and no final state).
 extern "C" long long ssd_scan_workspace_bytes(int bb, int s, int h, int p,
-                                              int n, int chunk, int dtype) {
-  if (dtype != repro::kBFloat16 || chunk < 1 || s / chunk < 2) return 0;
-  return static_cast<long long>(
-      tc::workspace(static_cast<size_t>(bb) * h, s / chunk, p, n).bytes);
+                                              int n, int chunk, int dtype,
+                                              int final_state) {
+  if (dtype != repro::kBFloat16 || chunk < 1 || s / chunk < 1 ||
+      (s / chunk < 2 && !final_state)) {
+    return 0;
+  }
+  return static_cast<long long>(tc::workspace(static_cast<size_t>(bb) * h,
+                                              s / chunk, p, n,
+                                              final_state != 0)
+                                    .bytes);
 }
 
 // x, y: (Bb, S, H, P); dt: (Bb, S, H) fp32; A: (H,) fp32; B, C:
 // (Bb, S, G, N); contiguous; x, B, C of one dtype.  S % chunk == 0,
-// H % G == 0, P and N multiples of 8.  ``workspace``: 256-byte aligned,
-// ssd_scan_workspace_bytes() of it (bfloat16 only).  Returns the CUDA
-// error of the launches (0 on success).
+// H % G == 0, P and N multiples of 8.  ``state``: nullptr, or the final
+// state (Bb, H, P, N) fp32, 16-byte aligned, which the launch writes.
+// ``workspace``: 256-byte aligned, ssd_scan_workspace_bytes() of it with
+// the same final-state flag (bfloat16 only).  Returns the CUDA error of
+// the launches (0 on success).
 extern "C" int ssd_scan_fwd(const void* x, const float* dt, const float* A,
                             const void* B, const void* C, void* y,
-                            void* workspace, int bb, int s, int h, int p,
-                            int g, int n, int chunk, int dtype,
+                            float* state, void* workspace, int bb, int s,
+                            int h, int p, int g, int n, int chunk, int dtype,
                             void* stream) {
   if (bb == 0 || s == 0 || h == 0) return 0;
   if (chunk < 1 || s % chunk || g < 1 || h % g || p % 8 || n % 8) {
@@ -870,12 +920,12 @@ extern "C" int ssd_scan_fwd(const void* x, const float* dt, const float* A,
   if (dtype == repro::kFloat32) {
     const Args a{static_cast<const float*>(x), dt, A,
                  static_cast<const float*>(B), static_cast<const float*>(C),
-                 static_cast<float*>(y), s, h, p, g, n, chunk};
+                 static_cast<float*>(y), state, s, h, p, g, n, chunk};
     return launch_fma(a, bb, st);
   }
   if (dtype == repro::kBFloat16) {
-    return tc::launch_bf16(x, dt, A, B, C, y, workspace, bb, s, h, p, g, n,
-                           chunk, st);
+    return tc::launch_bf16(x, dt, A, B, C, y, state, workspace, bb, s, h, p,
+                           g, n, chunk, st);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

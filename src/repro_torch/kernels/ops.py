@@ -114,17 +114,19 @@ def rmsnorm(x, w, *, eps=1e-6, weight_offset=0.0):
     return _rmsnorm_plain(x, w, eps=eps, weight_offset=weight_offset)
 
 
-def ssd(x, dt, A, B, C, *, chunk=128):
+def ssd(x, dt, A, B, C, *, chunk=128, return_state=False):
     """Mamba2 SSD operator.  x: (Bb,S,H,P); dt: (Bb,S,H); A: (H,); B, C:
-    (Bb,S,G,N) -> y (Bb,S,H,P) in x's dtype.  The caller applies the
+    (Bb,S,G,N) -> y (Bb,S,H,P) in x's dtype, or with ``return_state``
+    (y, the final state (Bb,H,P,N) in float32).  The caller applies the
     D-skip.  ``chunk`` is cut to S, and S must be a multiple of it."""
     s = x.shape[1]
     chunk = min(int(chunk), s)
     if chunk < 1 or s % chunk:
         raise ValueError(f"S={s} is not a multiple of chunk={chunk}")
     if _is_cuda(x, dt, A, B, C):
-        return _ssd_cuda(x, dt, A, B, C, chunk=chunk)
-    return _ssd_plain(x, dt, A, B, C, chunk=chunk)
+        return _ssd_cuda(x, dt, A, B, C, chunk=chunk,
+                         return_state=return_state)
+    return _ssd_plain(x, dt, A, B, C, chunk=chunk, return_state=return_state)
 
 
 def moe_gmm(x, w, block_group_ids, *, block_t):

@@ -9,7 +9,8 @@ kernel.  ``ssd_scan`` launches them on CUDA tensors only; ``ssd_plain``
 is the same function in plain PyTorch (``ref.ssd_chunked_ref``), which
 the CPU path and the comparisons on the card use.  Both take x (Bb, S, H,
 P), dt (Bb, S, H), A (H,) and B, C (Bb, S, G, N) and return y (Bb, S, H,
-P) in x's dtype: no D-skip, no final state.
+P) in x's dtype, no D-skip, and with ``return_state=True`` also the
+final state (Bb, H, P, N) in float32, the state after the last chunk.
 """
 from __future__ import annotations
 
@@ -27,13 +28,14 @@ MAX_Y_TILES = 512         # fp32: 256 threads x two 4x4 y tiles: Q*P <= 8192
 MAX_N_BF16 = 128          # bf16: N in at most eight k16 steps of mma.sync
 
 # Kernels ssd_scan has launched on the card: three a call in bf16 with more
-# than one chunk (chunk state, state passing, chunk scan; these calls alone
-# take a workspace), else one.
+# than one chunk or with the final state (chunk state, state passing,
+# chunk scan; these calls alone take a workspace), else one.
 launches = 0
 
 
-def ssd_plain(x, dt, A, B, C, *, chunk):
-    return ssd_chunked_ref(x, dt, A, B, C, chunk=chunk)[0]
+def ssd_plain(x, dt, A, B, C, *, chunk, return_state=False):
+    y, state = ssd_chunked_ref(x, dt, A, B, C, chunk=chunk)
+    return (y, state) if return_state else y
 
 
 def _ceil(v: int, m: int) -> int:
@@ -79,27 +81,32 @@ def kernel_fits(chunk: int, p: int, n: int,
 @functools.cache
 def _lib():
     lib = _build.load("ssd_scan")
-    lib.ssd_scan_fwd.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [
+    lib.ssd_scan_fwd.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [
         ctypes.c_void_p]
     lib.ssd_scan_fwd.restype = ctypes.c_int
-    lib.ssd_scan_workspace_bytes.argtypes = [ctypes.c_int] * 7
+    lib.ssd_scan_workspace_bytes.argtypes = [ctypes.c_int] * 8
     lib.ssd_scan_workspace_bytes.restype = ctypes.c_longlong
     return lib
 
 
-def workspace_bytes(x: torch.Tensor, B: torch.Tensor, *, chunk: int) -> int:
-    """Bytes of workspace one call takes (the bf16 kernels' S_c, which
-    the state passing overwrites with the carried states, and exp(L_Q); 0
-    in fp32 or with one chunk)."""
+def workspace_bytes(x: torch.Tensor, B: torch.Tensor, *, chunk: int,
+                    return_state: bool = False) -> int:
+    """Bytes of workspace one call takes (the bf16 kernels' S_c of all
+    chunks but the last, which the state passing overwrites with the
+    carried states, and exp(L_Q) of those chunks, or of all of them with
+    the final state; 0 in fp32, or with one chunk and no state)."""
     bb, s, h, p = x.shape
     return int(_lib().ssd_scan_workspace_bytes(
-        bb, s, h, p, B.shape[3], int(chunk), DTYPE_CODES[x.dtype]))
+        bb, s, h, p, B.shape[3], int(chunk), DTYPE_CODES[x.dtype],
+        int(return_state)))
 
 
-def ssd_scan(x, dt, A, B, C, *, chunk):
+def ssd_scan(x, dt, A, B, C, *, chunk, return_state=False):
     """Launch the kernel.  x, B, C: contiguous float32 or bfloat16 CUDA
     tensors of one dtype; dt, A: float32; S % chunk == 0, H % G == 0, P and
-    N multiples of 8, and (chunk, P, N) within one block's shared memory."""
+    N multiples of 8, and (chunk, P, N) within one block's shared memory.
+    Returns y, or (y, the final state (Bb, H, P, N) float32) with
+    ``return_state``: a tensor of its own, not a view of the workspace."""
     global launches
     ts = (x, dt, A, B, C)
     if not all(t.is_cuda and t.device == x.device for t in ts):
@@ -134,17 +141,23 @@ def ssd_scan(x, dt, A, B, C, *, chunk):
         raise ValueError("ssd_scan takes contiguous inputs, x, B and C "
                          "16-byte aligned")
     y = torch.empty_like(x)
-    if y.numel() == 0:
-        return y
-    ws = torch.empty(workspace_bytes(x, B, chunk=chunk), dtype=torch.uint8,
-                     device=x.device)
+    if y.numel() == 0:   # nothing launches; an empty sequence's state is 0
+        return ((y, torch.zeros((bb, h, p, n), dtype=torch.float32,
+                                device=x.device)) if return_state else y)
+    state = (torch.empty((bb, h, p, n), dtype=torch.float32, device=x.device)
+             if return_state else None)
+    ws = torch.empty(workspace_bytes(x, B, chunk=chunk,
+                                     return_state=return_state),
+                     dtype=torch.uint8, device=x.device)
     with torch.cuda.device(x.device):
         err = _lib().ssd_scan_fwd(
             x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
-            C.data_ptr(), y.data_ptr(), ws.data_ptr() if ws.numel() else None,
+            C.data_ptr(), y.data_ptr(),
+            state.data_ptr() if return_state else None,
+            ws.data_ptr() if ws.numel() else None,
             bb, s, h, p, g, n, chunk, DTYPE_CODES[x.dtype],
             torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"ssd_scan kernel launch failed: CUDA error {err}")
     launches += 3 if ws.numel() else 1
-    return y
+    return (y, state) if return_state else y

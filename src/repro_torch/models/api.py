@@ -1,5 +1,6 @@
 """Unified model API: ``build_model(cfg)`` -> ModelFns (counterpart of
-``repro/models/api.py``; the dense, MoE and hybrid families so far).
+``repro/models/api.py``; the dense, MoE, hybrid, SSM and VLM families so
+far).
 
   init(seed, ex) -> model (an nn.Module holding the parameters)
   prefill(model, batch, ex, cache=None) -> (logits, cache)
@@ -15,7 +16,7 @@ from typing import Callable
 import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
-from repro_torch.models import hybrid, transformer
+from repro_torch.models import hybrid, ssm_lm, transformer
 from repro_torch.models.common import check_device
 
 # family -> (seeded init, cache allocator)
@@ -23,6 +24,8 @@ _FAMILIES = {
     "dense": (transformer.lm_init, transformer.init_cache),
     "moe": (transformer.lm_init, transformer.init_cache),
     "hybrid": (hybrid.hybrid_init, hybrid.init_cache),
+    "ssm": (ssm_lm.ssm_lm_init, ssm_lm.init_cache),
+    "vlm": (transformer.lm_init, transformer.init_cache),
 }
 PORTED_FAMILIES = tuple(_FAMILIES)
 
@@ -48,7 +51,11 @@ def build_model(cfg: ModelConfig) -> ModelFns:
         return family_init(cfg, ex, seed)
 
     def prefill(model, batch, ex, cache=None):
-        return model.prefill(batch["tokens"], ex, cache)
+        prefix = batch.get("prefix_embeds")
+        if prefix is None:
+            return model.prefill(batch["tokens"], ex, cache)
+        return model.prefill(batch["tokens"], ex, cache,
+                             prefix_embeds=prefix)
 
     def decode_step(model, cache, tokens, pos, ex):
         return model.decode_step(cache, tokens, pos, ex)
@@ -58,12 +65,21 @@ def build_model(cfg: ModelConfig) -> ModelFns:
                             check_device(ex.device))
 
     def make_batch(seed, shape: ShapeConfig, ex):
-        # tokens are drawn on the CPU so every device gets the same prompt
+        # drawn on the CPU so every device gets the same prompt; a vlm
+        # config's prefix embeddings (standing in for the vision tower)
+        # are standard normals from the same generator, in compute dtype
+        device = check_device(ex.device)
         gen = torch.Generator().manual_seed(seed)
         tokens = torch.randint(0, cfg.vocab,
                                (shape.global_batch, shape.seq_len),
                                generator=gen)
-        return {"tokens": tokens.to(check_device(ex.device))}
+        batch = {"tokens": tokens.to(device)}
+        if cfg.family == "vlm":
+            prefix = torch.randn(
+                (shape.global_batch, cfg.n_prefix_tokens, cfg.d_model),
+                generator=gen)
+            batch["prefix_embeds"] = prefix.to(ex.compute_dtype).to(device)
+        return batch
 
     return ModelFns(cfg=cfg, init=init, prefill=prefill,
                     decode_step=decode_step, init_cache=init_cache,

@@ -19,14 +19,6 @@ def n_shared_applications(cfg: ModelConfig) -> int:
     return cfg.n_layers // cfg.hybrid_period
 
 
-class Layer(torch.nn.Module):
-    def __init__(self, cfg: ModelConfig, *, device=None, dtype=None):
-        super().__init__()
-        self.ln = torch.nn.Parameter(torch.empty(cfg.d_model, device=device,
-                                                 dtype=dtype))
-        self.ssm = ssm.SSM(cfg, device=device, dtype=dtype)
-
-
 class Hybrid(torch.nn.Module):
     """Parameters of a hybrid LM; the head is tied to the embedding."""
 
@@ -37,7 +29,7 @@ class Hybrid(torch.nn.Module):
         self.embed = torch.nn.Parameter(
             torch.empty(cfg.vocab, cfg.d_model, **kw))
         self.layers = torch.nn.ModuleList(
-            Layer(cfg, **kw) for _ in range(cfg.n_layers))
+            ssm.Layer(cfg, **kw) for _ in range(cfg.n_layers))
         self.shared = Block(cfg, **kw)
         self.final_norm = torch.nn.Parameter(torch.empty(cfg.d_model, **kw))
 

@@ -4,7 +4,8 @@
 dt and A are computed in float32; x, B and C stay in the compute dtype, as
 in the reference.  The depthwise causal conv is ``F.conv1d`` (the
 reference uses XLA's conv there, not a Pallas kernel); the SSD scan goes
-through ``ops.ssd``; the decode recurrence is plain PyTorch.
+through ``ops.ssd``, which on the card also gives the prefill's final
+state (``ssm_train_with_state``); the decode recurrence is plain PyTorch.
 """
 from __future__ import annotations
 
@@ -60,6 +61,16 @@ class SSM(torch.nn.Module):
         self.gate_norm.fill_(1.0)
 
 
+class Layer(torch.nn.Module):
+    """A pre-norm Mamba2 layer's parameters (Mamba2's and Zamba2's)."""
+
+    def __init__(self, cfg: ModelConfig, *, device=None, dtype=None):
+        super().__init__()
+        self.ln = torch.nn.Parameter(torch.empty(cfg.d_model, device=device,
+                                                 dtype=dtype))
+        self.ssm = SSM(cfg, device=device, dtype=dtype)
+
+
 def _split_in_proj(proj, cfg: ModelConfig):
     """-> z (.., di), xbc (.., d_xbc), dt (.., nh)."""
     di, _, d_xbc = ssm_dims(cfg)
@@ -80,26 +91,46 @@ def _dt_a(ssm: SSM, dt):
     return dt, -torch.exp(ssm.A_log.float())
 
 
-def ssm_train(ssm: SSM, x, cfg: ModelConfig, ex):
-    """Full-sequence forward (prefill).  x: (B, S, D) -> (B, S, D)."""
+def _forward(ssm: SSM, x, cfg: ModelConfig, ex, return_state: bool):
+    """-> (out (B, S, D), the raw pre-conv x|B|C (B, S, d_xbc), the final
+    SSD state (B, H, P, N) float32 or None)."""
     s_cfg = cfg.ssm
     b, s, _ = x.shape
     di, nh, _ = ssm_dims(cfg)
     gn = s_cfg.n_groups * s_cfg.d_state
 
-    z, xbc, dt = _split_in_proj(ssm.in_proj(x), cfg)
-    xbc = _causal_conv(xbc, ssm.conv_w, ssm.conv_b)
+    z, xbc_raw, dt = _split_in_proj(ssm.in_proj(x), cfg)
+    xbc = _causal_conv(xbc_raw, ssm.conv_w, ssm.conv_b)
     xs, bmat, cmat = torch.split(xbc, [di, gn, gn], dim=-1)
     xs = xs.reshape(b, s, nh, s_cfg.head_dim).contiguous()
     bmat = bmat.reshape(b, s, s_cfg.n_groups, s_cfg.d_state).contiguous()
     cmat = cmat.reshape(b, s, s_cfg.n_groups, s_cfg.d_state).contiguous()
     dt, a = _dt_a(ssm, dt)
 
-    y = ops.ssd(xs, dt.contiguous(), a, bmat, cmat, chunk=ex.ssd_chunk)
+    y = ops.ssd(xs, dt.contiguous(), a, bmat, cmat, chunk=ex.ssd_chunk,
+                return_state=return_state)
+    y, state = y if return_state else (y, None)
     y = y + xs * ssm.D.to(y.dtype)[None, None, :, None]
     y = y.reshape(b, s, di)
     y = common.norm(y * F.silu(z), ssm.gate_norm, cfg.norm_eps)
-    return ssm.out_proj(y)
+    return ssm.out_proj(y), xbc_raw, state
+
+
+def ssm_train(ssm: SSM, x, cfg: ModelConfig, ex):
+    """Full-sequence forward (prefill) without the state.  x: (B, S, D) ->
+    (B, S, D)."""
+    return _forward(ssm, x, cfg, ex, return_state=False)[0]
+
+
+def ssm_train_with_state(ssm: SSM, x, cfg: ModelConfig, ex):
+    """Full-sequence forward that also returns the decode state (the
+    reference's ``ssm_lm._train_with_state``).  x: (B, S, D) -> (out
+    (B, S, D), conv state: the last W-1 rows of the raw x|B|C in the
+    compute dtype, (B, W-1, d_xbc), final SSD state (B, H, P, N)
+    float32)."""
+    out, xbc_raw, state = _forward(ssm, x, cfg, ex, return_state=True)
+    conv = xbc_raw[:, -(cfg.ssm.conv_width - 1):].to(ex.compute_dtype)
+    return out, conv, state
 
 
 def ssm_init_state(cfg: ModelConfig, n_layers: int, batch: int, dtype,

@@ -1,5 +1,6 @@
 """Decoder-only transformer LM (counterpart of
-``repro/models/transformer.py``, dense and MoE families).
+``repro/models/transformer.py``: the dense and MoE families, and the VLM
+backbone, whose prefill takes precomputed prefix embeddings).
 
 The layers are a Python loop over an ``nn.ModuleList``; local/global
 window alternation (gemma) is a static window per layer, and a uniform
@@ -57,13 +58,16 @@ class Transformer(torch.nn.Module):
         return p == 0 or i % p == p - 1
 
     @torch.no_grad()
-    def prefill(self, tokens, ex, cache=None):
+    def prefill(self, tokens, ex, cache=None, prefix_embeds=None):
         """tokens: (B, S) -> (last-position logits (B, V), cache).
 
         ``cache``: None allocates one of S positions; a larger cache from
         ``init_cache`` receives the prompt's K/V in place at [0, S).  A
         rolling cache receives the last min(S, window) positions at the
         front, as the reference's trimmed cache (ROADMAP C7).
+        ``prefix_embeds``: None, or (B, P, D) with P <= S, which take the
+        first P positions in the compute dtype; the tokens there are
+        ignored (the reference's ``_embed``).
         """
         cfg, a = self.cfg, self.cfg.attn
         b, s = tokens.shape
@@ -71,6 +75,14 @@ class Transformer(torch.nn.Module):
             cache = init_cache(cfg, b, s, ex.compute_dtype, tokens.device)
         clen = cache_len(cfg, s)
         x = self.embed[tokens].to(ex.compute_dtype)
+        if prefix_embeds is not None:
+            shape = tuple(prefix_embeds.shape)
+            if (len(shape) != 3 or shape[0] != b or shape[1] > s
+                    or shape[2] != cfg.d_model):
+                raise ValueError(f"prefix_embeds {shape} must be (B={b}, "
+                                 f"P<={s}, D={cfg.d_model})")
+            x = torch.cat([prefix_embeds.to(ex.compute_dtype),
+                           x[:, shape[1]:]], dim=1)
         rope = common.rope_angles(torch.arange(s, device=tokens.device),
                                   a.head_dim, a.rope_theta)
         for i, blk in enumerate(self.layers):

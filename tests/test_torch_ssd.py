@@ -159,15 +159,16 @@ def test_ssd_kernel_limits(chunk, p, n, fits):
 # ---------------------------------------------------------------------------
 # The bf16 kernels' three-stage split, transcribed in float64
 # ---------------------------------------------------------------------------
-def _split_ssd_f64(x, dt, A, B, C, chunk):
+def _split_ssd_f64(x, dt, A, B, C, chunk, return_state=False):
     """The algebra of ``csrc/ssd_scan.cu``'s bf16 path, in float64 numpy:
     chunk rows padded to a multiple of 16 with dt = x = B = C = 0, then
     (1) chunk state S_c = (x o w)^T B, w_j = exp(L_Q - L_j) dt_j, for
-    every chunk but the last; (2) state passing, state_{c+1} =
-    exp(L_Q,c) state_c + S_c from a zero state; (3) chunk scan,
-    y = M x + exp(L_i) C state^T with M = (C B^T) exp(L_i - L_j) dt_j where
-    j <= i and 0 elsewhere, the exponent set to 0 above the diagonal
-    before the exp."""
+    every chunk but the last (every chunk with ``return_state``); (2)
+    state passing, state_{c+1} = exp(L_Q,c) state_c + S_c from a zero
+    state, one step more with ``return_state``: the final state; (3)
+    chunk scan, y = M x + exp(L_i) C state^T with M = (C B^T)
+    exp(L_i - L_j) dt_j where j <= i and 0 elsewhere, the exponent set to
+    0 above the diagonal before the exp."""
     x, dt, A, B, C = (np.asarray(a, np.float64) for a in (x, dt, A, B, C))
     bb, s, h, p = x.shape
     g, n = B.shape[2], B.shape[3]
@@ -180,6 +181,7 @@ def _split_ssd_f64(x, dt, A, B, C, chunk):
 
     xc, dtc, bc, cc = chunks(x), chunks(dt), chunks(B), chunks(C)
     y = np.zeros((bb, nc, qp, h, p))
+    final = np.zeros((bb, h, p, n))
     causal = np.tril(np.ones((qp, qp), bool))
     for hh in range(h):
         gg = hh * g // h
@@ -195,11 +197,13 @@ def _split_ssd_f64(x, dt, A, B, C, chunk):
             y[:, c, :, hh] = (np.einsum("bij,bjp->bip", m, xq)
                               + np.exp(lcq)[..., None]
                               * np.einsum("bin,bpn->bip", cq, state))
-            if c < nc - 1:
+            if c < nc - 1 or return_state:
                 w = np.exp(lq[:, c, None] - lcq) * dq
                 s_c = np.einsum("bjp,bjn->bpn", xq * w[..., None], bq)
                 state = np.exp(lq[:, c])[:, None, None] * state + s_c
-    return y[:, :, :chunk].reshape(bb, s, h, p)
+        final[:, hh] = state
+    y = y[:, :, :chunk].reshape(bb, s, h, p)
+    return (y, final) if return_state else y
 
 
 SPLIT_CASES = {
@@ -287,6 +291,41 @@ def test_ssd_split_f64_vs_recurrence_f64(case):
     np.testing.assert_allclose(_split_ssd_f64(x, dt, A, B, C, chunk),
                                _recurrence_f64(x, dt, A, B, C), rtol=1e-9,
                                atol=1e-9)
+
+
+def _recurrence_state_f64(x, dt, A, B, C):
+    """The per-step recurrence's state after the last step, (Bb, H, P, N),
+    in float64 numpy."""
+    x, dt, A, B, C = (np.asarray(a, np.float64) for a in (x, dt, A, B, C))
+    bb, s, h, p = x.shape
+    g = B.shape[2]
+    state = np.zeros((bb, h, p, B.shape[3]))
+    for hh in range(h):
+        gg = hh * g // h
+        for t in range(s):
+            d = dt[:, t, hh, None, None]
+            state[:, hh] = (np.exp(d * A[hh]) * state[:, hh]
+                            + d * x[:, t, hh, :, None] * B[:, t, gg, None, :])
+    return state
+
+
+# the served head shapes, one chunk (the state pass's one step), and a
+# chunk of 12 (padded to 16 rows)
+FINAL_STATE_CASES = dict(SPLIT_CASES, one_chunk=(2, 64, 2, 16, 1, 32, 64),
+                         chunk12=(1, 36, 2, 8, 1, 16, 12))
+
+
+@pytest.mark.parametrize("case", sorted(FINAL_STATE_CASES))
+def test_ssd_split_f64_final_state_vs_recurrence_f64(case):
+    """The final state as the bf16 kernels make it (chunk state over every
+    chunk, the last step of the state passing written out) is the
+    per-step recurrence's state, both in float64; y is unchanged."""
+    bb, s, h, p, g, n, chunk = FINAL_STATE_CASES[case]
+    x, dt, A, B, C = _inputs(bb, s, h, p, g, n, np.float32, seed=11)
+    y, state = _split_ssd_f64(x, dt, A, B, C, chunk, return_state=True)
+    np.testing.assert_array_equal(y, _split_ssd_f64(x, dt, A, B, C, chunk))
+    np.testing.assert_allclose(state, _recurrence_state_f64(x, dt, A, B, C),
+                               rtol=1e-9, atol=1e-9)
 
 
 def test_ssd_split_masks_before_the_exp():
