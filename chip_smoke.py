@@ -14,31 +14,38 @@ Phases, in order; any failure raises and exits non-zero:
    card at the serving paths' shapes (the wavefront at the study's: gpipe,
    1f1b, interleaved, mixed keys up to S 16 x L 542, and a key too large
    for shared memory), and time the kernel, the plain version and the one
-   PyTorch call that computes the same function (the gmm also with ids
-   outside [0, E), the wavefront with key indices outside [0, U); the
-   SSD's final state of every case against the plain version's, with
-   its launches and workspace);
-3. five serving paths, each with seeded random weights at full width,
+   PyTorch call that computes the same function (flash also at Sq != Sk:
+   Whisper's cross-attention, 384 queries over 1500 encoder frames, its
+   encoder, and a causal mask and window at the offset position; the gmm
+   also with ids outside [0, E), the wavefront with key indices outside
+   [0, U); the SSD's final state of every case against the plain
+   version's, with its launches and workspace);
+3. six serving paths, each with seeded random weights at full width,
    bf16: TinyLlama-1.1B (22 layers; flash + rmsnorm), Zamba2-7B (81 Mamba2
    layers + 13 applications of the shared attention block; ssd_scan +
    flash at head_dim 112 + rmsnorm), Qwen3-MoE-235B-A22B cut to 8 of
    its 94 layers, which one 80 GB card holds (128 experts, top-8; moe_gmm
    + flash at head_dim 128 + rmsnorm with qk-norm), Mamba2-780M (48
-   layers; ssd_scan with its final state, handed to decode, + rmsnorm)
-   and LLaVA-NeXT-34B cut to 12 of its 60 layers (576 prefix embeddings
-   in the prompt; flash with 56 query heads over 8 KV heads + rmsnorm).
-   For each:
+   layers; ssd_scan with its final state, handed to decode, + rmsnorm),
+   LLaVA-NeXT-34B cut to 12 of its 60 layers (576 prefix embeddings
+   in the prompt; flash with 56 query heads over 8 KV heads + rmsnorm)
+   and Whisper-medium (24 encoder layers over 1500 frames, 24 decoder
+   layers with cross-attention; flash non-causal, causal and at Sq != Sk,
+   + rmsnorm).  For each:
    serve   - ``repro_torch.launch.serve.generate`` with batch 8, a
-             1024-token prompt and 64 new tokens, counting kernel launches
-             (every count set to 0 just before, read just after);
-   profile - one prefill and 8 decode steps under torch.profiler (device
-             time by kernel, device idle share);
+             1024-token prompt (Whisper 384) and 64 new tokens, counting
+             kernel launches (every count set to 0 just before, read just
+             after);
+   profile - one prefill (for Whisper also its encoder alone) and 8
+             decode steps under torch.profiler (device time by kernel,
+             device idle share);
    check   - the same port at full width and cut depth (TinyLlama 2
              layers, Zamba2 7 = one period + one leftover layer, Qwen3-MoE
-             1, Mamba2 2, LLaVA 1 with a 640-token prompt) in float32, on
+             1, Mamba2 2, LLaVA 1 with a 640-token prompt, Whisper 2 + 2
+             over 1500 frames with a 384-token prompt) in float32, on
              the card and on the CPU (plain versions) from the same
-             weights and prefix embeddings: prefill logits and the first
-             8 greedy tokens must agree.
+             weights, prefix embeddings and encoder frames: prefill
+             logits and the first 8 greedy tokens must agree.
 4. study  - ``repro_torch``'s ``Study.run()`` on the card for every
    committed scenario (the batched drivers' and the outer MCM search's
    ``paper_qwen3_outer``), ``paper_qwen3`` under the ``railx`` driver,
@@ -92,6 +99,7 @@ PEAK_BYTES_PER_S = 3.35e12
 NO_SPILL = "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"
 
 SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 8, 1024, 64
+WHISPER_PROMPT = 384     # + SERVE_GEN = Whisper's 448-token decoder context
 CHECK_BATCH, CHECK_TOKENS = 2, 8
 SEED = 0
 
@@ -260,60 +268,99 @@ def build_report(ptxas_log: str, lib: pathlib.Path) -> dict:
 # ---------------------------------------------------------------------------
 # 2. kernels against their plain versions
 # ---------------------------------------------------------------------------
-def _attn_live_pairs(s: int, window, causal: bool) -> int:
-    """(query, key) pairs the mask leaves, per (batch, head)."""
-    r = torch.arange(s, dtype=torch.int64)
-    hi = r if causal else torch.full_like(r, s - 1)
+def _attn_live_pairs(sq: int, sk: int, window, causal: bool) -> int:
+    """(query, key) pairs the mask leaves, per (batch, head): query i at
+    position i + Sk - Sq, as in the kernel."""
+    r = torch.arange(sq, dtype=torch.int64) + (sk - sq)
+    hi = r.clamp(max=sk - 1) if causal else torch.full_like(r, sk - 1)
     lo = (r - window + 1).clamp(min=0) if window else torch.zeros_like(r)
     return int((hi - lo + 1).clamp(min=0).sum())
 
 
+def _attn_live_keys(sq: int, sk: int, window, causal: bool) -> int:
+    """Keys some query attends to, per (batch, KV head): the union of the
+    rows' ranges, which is one range (neighbouring rows' ranges touch)."""
+    r = torch.arange(sq, dtype=torch.int64) + (sk - sq)
+    hi = r.clamp(max=sk - 1) if causal else torch.full_like(r, sk - 1)
+    lo = (r - window + 1).clamp(min=0) if window else torch.zeros_like(r)
+    live = hi >= lo
+    return int(hi[live].max() - lo[live].min() + 1) if live.any() else 0
+
+
+def _attn_mask(sq: int, sk: int, window, causal: bool) -> torch.Tensor:
+    """The (Sq, Sk) boolean mask of the kernel (True: attend), query i at
+    position i + Sk - Sq, on the card."""
+    r = torch.arange(sq, device="cuda")[:, None] + (sk - sq)
+    c = torch.arange(sk, device="cuda")[None, :]
+    keep = (r - c) < (window or sk + 1)
+    return keep & (c <= r) if causal else keep
+
+
+BF16, FP32 = torch.bfloat16, torch.float32
 FLASH_CASES = [
-    # name, b, hq, hkv, s, d, window, softcap, causal, dtype
-    ("main", 8, 32, 4, 1024, 64, None, 0.0, True, torch.bfloat16),
-    ("ragged", 2, 32, 4, 1000, 64, None, 0.0, True, torch.bfloat16),
-    ("window_softcap", 2, 8, 4, 1024, 64, 256, 50.0, True, torch.bfloat16),
-    ("noncausal", 2, 32, 4, 1000, 64, None, 0.0, False, torch.bfloat16),
-    ("fp32", 2, 32, 4, 512, 64, None, 0.0, True, torch.float32),
-    ("d128", 1, 16, 8, 300, 128, 100, 0.0, True, torch.bfloat16),
-    ("d32", 1, 8, 2, 130, 32, None, 30.0, False, torch.float32),
+    # name, b, hq, hkv, sq, sk, d, window, softcap, causal, dtype
+    ("main", 8, 32, 4, 1024, 1024, 64, None, 0.0, True, BF16),
+    ("ragged", 2, 32, 4, 1000, 1000, 64, None, 0.0, True, BF16),
+    ("window_softcap", 2, 8, 4, 1024, 1024, 64, 256, 50.0, True, BF16),
+    ("noncausal", 2, 32, 4, 1000, 1000, 64, None, 0.0, False, BF16),
+    ("fp32", 2, 32, 4, 512, 512, 64, None, 0.0, True, FP32),
+    ("d128", 1, 16, 8, 300, 300, 128, 100, 0.0, True, BF16),
+    ("d32", 1, 8, 2, 130, 130, 32, None, 30.0, False, FP32),
     # head_dim 16: the reduced configs (``--reduced``) on the card
-    ("d16", 2, 4, 2, 77, 16, 16, 0.0, True, torch.bfloat16),
+    ("d16", 2, 4, 2, 77, 77, 16, 16, 0.0, True, BF16),
     # head_dim 112: Zamba2-7B's shared block, at its prefill shape
-    ("d112_zamba2", 8, 32, 32, 1024, 112, None, 0.0, True, torch.bfloat16),
-    ("d112_fp32_ragged", 1, 4, 4, 200, 112, None, 0.0, True, torch.float32),
+    ("d112_zamba2", 8, 32, 32, 1024, 1024, 112, None, 0.0, True, BF16),
+    ("d112_fp32_ragged", 1, 4, 4, 200, 200, 112, None, 0.0, True, FP32),
     # head_dim 256: gemma2-2b, window 256 (masks at S=1024), softcap 50
-    ("d256_gemma2", 2, 8, 4, 1024, 256, 256, 50.0, True, torch.bfloat16),
-    ("d256_fp32", 1, 2, 1, 130, 256, None, 0.0, False, torch.float32),
+    ("d256_gemma2", 2, 8, 4, 1024, 1024, 256, 256, 50.0, True, BF16),
+    ("d256_fp32", 1, 2, 1, 130, 130, 256, None, 0.0, False, FP32),
     # head_dim 128: Qwen3-MoE's prefill shape (64 query heads, 4 kv heads)
-    ("d128_qwen3", 8, 64, 4, 1024, 128, None, 0.0, True, torch.bfloat16),
+    ("d128_qwen3", 8, 64, 4, 1024, 1024, 128, None, 0.0, True, BF16),
     # LLaVA-NeXT-34B's prefill shape: 56 query heads over 8 KV heads, a
     # GQA group of 7 (not a power of two)
-    ("d128_llava", 8, 56, 8, 1024, 128, None, 0.0, True, torch.bfloat16),
+    ("d128_llava", 8, 56, 8, 1024, 1024, 128, None, 0.0, True, BF16),
     # float32 and bfloat16 run different kernels (FMA pipes, tensor
     # cores): each fp32-only shape above has a bf16 twin
-    ("d32_bf16", 1, 8, 2, 130, 32, None, 30.0, False, torch.bfloat16),
-    ("d112_bf16_ragged", 1, 4, 4, 200, 112, None, 0.0, True, torch.bfloat16),
-    ("d256_bf16", 1, 2, 1, 130, 256, None, 0.0, False, torch.bfloat16),
+    ("d32_bf16", 1, 8, 2, 130, 130, 32, None, 30.0, False, BF16),
+    ("d112_bf16_ragged", 1, 4, 4, 200, 200, 112, None, 0.0, True, BF16),
+    ("d256_bf16", 1, 2, 1, 130, 130, 256, None, 0.0, False, BF16),
     # a window and an S that are multiples of no tile
-    ("window_ragged", 2, 32, 4, 1000, 64, 100, 0.0, True, torch.bfloat16),
+    ("window_ragged", 2, 32, 4, 1000, 1000, 64, 100, 0.0, True, BF16),
     # head_dims below the width they are stored at, through every bf16
     # instantiation (64; 128; 128 at N=112; 256), with a softcap, windows
     # and a non-causal window
-    ("d8_bf16", 1, 4, 2, 200, 8, None, 0.0, True, torch.bfloat16),
-    ("d24_bf16_window", 1, 4, 2, 200, 24, 50, 0.0, True, torch.bfloat16),
-    ("d40_bf16_noncausal", 1, 4, 1, 200, 40, None, 0.0, False,
-     torch.bfloat16),
-    ("d72_bf16_softcap", 1, 4, 2, 200, 72, None, 20.0, True, torch.bfloat16),
-    ("d104_bf16", 1, 4, 4, 333, 104, None, 0.0, True, torch.bfloat16),
-    ("d120_bf16_window", 1, 4, 2, 200, 120, 64, 0.0, True, torch.bfloat16),
-    ("d136_bf16", 1, 2, 1, 200, 136, None, 0.0, True, torch.bfloat16),
-    ("d248_bf16_noncausal_window", 1, 2, 2, 300, 248, 100, 0.0, False,
-     torch.bfloat16),
+    ("d8_bf16", 1, 4, 2, 200, 200, 8, None, 0.0, True, BF16),
+    ("d24_bf16_window", 1, 4, 2, 200, 200, 24, 50, 0.0, True, BF16),
+    ("d40_bf16_noncausal", 1, 4, 1, 200, 200, 40, None, 0.0, False, BF16),
+    ("d72_bf16_softcap", 1, 4, 2, 200, 200, 72, None, 20.0, True, BF16),
+    ("d104_bf16", 1, 4, 4, 333, 333, 104, None, 0.0, True, BF16),
+    ("d120_bf16_window", 1, 4, 2, 200, 200, 120, 64, 0.0, True, BF16),
+    ("d136_bf16", 1, 2, 1, 200, 200, 136, None, 0.0, True, BF16),
+    ("d248_bf16_noncausal_window", 1, 2, 2, 300, 300, 248, 100, 0.0, False,
+     BF16),
+]
+# Cross-attention (Sq != Sk, q at the last Sq of the Sk positions) and
+# Whisper-medium's shapes: batch 8, 16 heads of 64, 1500 encoder frames, a
+# 384-token prompt.  They draw from a generator of their own, so every
+# case above and every later phase keeps the inputs it had without them.
+FLASH_CROSS_CASES = [
+    # the decoder's cross-attention at prefill, the encoder, and the
+    # decoder's causal self-attention over the prompt
+    ("whisper_cross", 8, 16, 16, 384, 1500, 64, None, 0.0, False, BF16),
+    ("whisper_encoder", 8, 16, 16, 1500, 1500, 64, None, 0.0, False, BF16),
+    ("whisper_decoder_self", 8, 16, 16, 384, 384, 64, None, 0.0, True, BF16),
+    # a causal mask and a window measured from the offset position, Sq < Sk
+    # (both kernels), and more queries than keys without a mask
+    ("offset_causal_window", 2, 8, 4, 300, 1000, 64, 200, 0.0, True, BF16),
+    ("offset_causal_window_fp32", 2, 8, 4, 300, 1000, 64, 200, 0.0, True,
+     FP32),
+    ("cross_sq_over_sk_fp32", 1, 8, 2, 500, 130, 64, None, 0.0, False, FP32),
+    ("cross_sq_over_sk_bf16", 1, 8, 2, 500, 130, 64, 64, 30.0, False, BF16),
 ]
 # cases timed as well as checked; "main" is TinyLlama's prefill shape
 FLASH_TIMED = ("main", "d112_zamba2", "d256_gemma2", "d128_qwen3",
-               "d128_llava")
+               "d128_llava", "whisper_cross", "whisper_encoder",
+               "whisper_decoder_self", "offset_causal_window")
 # tolerances: bf16 outputs differ by one bf16 rounding (2e-2 as in the
 # reference's kernel sweeps); fp32 by the order of sums and exp2/log.
 FLASH_TOL = {torch.bfloat16: (2e-2, 1e-3), torch.float32: (1e-4, 1e-4)}
@@ -322,10 +369,13 @@ FLASH_TOL = {torch.bfloat16: (2e-2, 1e-3), torch.float32: (1e-4, 1e-4)}
 def phase_flash(gen):
     from repro_torch.kernels import flash_attention as fa
     timed = {}
-    for name, b, hq, hkv, s, d, win, cap, causal, dt in FLASH_CASES:
-        q = torch.randn(b, hq, s, d, device="cuda", generator=gen).to(dt)
-        k = torch.randn(b, hkv, s, d, device="cuda", generator=gen).to(dt)
-        v = torch.randn(b, hkv, s, d, device="cuda", generator=gen).to(dt)
+    cross_gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    cases = [(c, gen) for c in FLASH_CASES] + [
+        (c, cross_gen) for c in FLASH_CROSS_CASES]
+    for (name, b, hq, hkv, sq, sk, d, win, cap, causal, dt), g in cases:
+        q = torch.randn(b, hq, sq, d, device="cuda", generator=g).to(dt)
+        k = torch.randn(b, hkv, sk, d, device="cuda", generator=g).to(dt)
+        v = torch.randn(b, hkv, sk, d, device="cuda", generator=g).to(dt)
         kw = {"causal": causal, "softcap": cap}
         o, lse = fa.flash_attention_fwd(q, k, v, win, **kw)
         o_p, lse_p = fa.flash_attention_plain(q, k, v, win, **kw)
@@ -333,7 +383,8 @@ def phase_flash(gen):
         err = (o.float() - o_p.float()).abs().max().item()
         lse_err = (lse - lse_p).abs().max().item()
         o_tol, lse_tol = FLASH_TOL[dt]
-        rec = {"case": name, "shape": [b, hq, hkv, s, d], "dtype": str(dt),
+        rec = {"case": name, "shape": [b, hq, hkv, sq, sk, d],
+               "dtype": str(dt),
                "window": win, "softcap": cap, "causal": causal,
                "max_abs_err": err, "lse_max_abs_err": lse_err,
                "tol": o_tol, "lse_tol": lse_tol}
@@ -342,8 +393,11 @@ def phase_flash(gen):
               f"flash {name}: kernel vs plain {err} (tol {o_tol}), lse "
               f"{lse_err} (tol {lse_tol})")
         if name in FLASH_TIMED:
-            flops = 4.0 * d * _attn_live_pairs(s, win, causal) * b * hq
-            nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size() \
+            flops = 4.0 * d * _attn_live_pairs(sq, sk, win, causal) * b * hq
+            # K and V over the keys some query needs (all of them at
+            # Sq == Sk; the last Sq + window - 1 under an offset window)
+            kv = 2 * b * hkv * _attn_live_keys(sq, sk, win, causal) * d
+            nbytes = (2 * q.numel() + kv) * q.element_size() \
                 + lse.numel() * 4
             rec["bound_ms"], rec["bound_by"] = bound_ms(flops, nbytes, dt)
             rec["ms"] = time_ms(lambda: fa.flash_attention_fwd(q, k, v, win,
@@ -351,11 +405,27 @@ def phase_flash(gen):
             rec["tflops"] = flops / rec["ms"] / 1e9
             rec["plain_ms"] = time_ms(
                 lambda: fa.flash_attention_plain(q, k, v, win, **kw), 5)
-            # no single PyTorch call takes a window or a softcap
-            rec["library_ms"] = (time_ms(
-                lambda: F.scaled_dot_product_attention(
-                    q, k, v, is_causal=causal, enable_gqa=True), 20)
-                if win is None and not cap else None)
+            # no single PyTorch call takes a softcap; SDPA's is_causal is
+            # aligned top-left at Sq != Sk, so a window or an offset causal
+            # mask goes in as an explicit boolean mask, built outside the
+            # timed call and held against the plain version once
+            if cap:
+                library = None
+            elif win is None and (sq == sk or not causal):
+                def library():
+                    return F.scaled_dot_product_attention(
+                        q, k, v, is_causal=causal, enable_gqa=True)
+            else:
+                mask = _attn_mask(sq, sk, win, causal)
+
+                def library():
+                    return F.scaled_dot_product_attention(
+                        q, k, v, attn_mask=mask, enable_gqa=True)
+                lib_err = (library().float() - o_p.float()).abs().max().item()
+                rec["library_max_abs_err"] = lib_err
+                check(lib_err <= o_tol, f"flash {name}: SDPA with the mask "
+                      f"vs plain {lib_err} (tol {o_tol})")
+            rec["library_ms"] = time_ms(library, 20) if library else None
             timed[name] = rec
         log("kernel", {"name": "flash_attention_fwd", **rec})
     return {**timed["main"], "shapes": [timed[n] for n in FLASH_TIMED[1:]]}
@@ -393,6 +463,16 @@ RMSNORM_CASES = [
     ("fp32_4096", (1024, 4096), torch.float32, 0.0),
     ("two_pass_d40960", (64, 40960), torch.bfloat16, 0.0),
 ]
+# Whisper-medium's d_model 1024: the encoder over 8 x 1500 frames, the
+# decoder's prefill over the 384-token prompt and a decode step.  They draw
+# from a generator of their own, so every case above and every later phase
+# keeps the inputs it had without them.
+RMSNORM_WHISPER_CASES = [
+    ("whisper_ln", (SERVE_BATCH * 1500, 1024), torch.bfloat16, 0.0),
+    ("whisper_decoder_ln", (SERVE_BATCH * WHISPER_PROMPT, 1024),
+     torch.bfloat16, 0.0),
+    ("whisper_decode", (SERVE_BATCH, 1, 1024), torch.bfloat16, 0.0),
+]
 # one bf16 rounding of the output (2^-7 relative); fp32: order of sums
 RMSNORM_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-5}
 
@@ -400,10 +480,13 @@ RMSNORM_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-5}
 def phase_rmsnorm(gen):
     from repro_torch.kernels import rmsnorm as rn
     records = {}
-    for name, shape, dt, off in RMSNORM_CASES:
-        x = torch.randn(shape, device="cuda", generator=gen).to(dt)
+    whisper_gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    cases = [(c, gen) for c in RMSNORM_CASES] + [
+        (c, whisper_gen) for c in RMSNORM_WHISPER_CASES]
+    for (name, shape, dt, off), g in cases:
+        x = torch.randn(shape, device="cuda", generator=g).to(dt)
         w = (1.0 + 0.1 * torch.randn(shape[-1], device="cuda",
-                                     generator=gen)).to(dt)
+                                     generator=g)).to(dt)
         kw = {"eps": 1e-6, "weight_offset": off}
         y = rn.rmsnorm(x, w, **kw)
         y_p = rn.rmsnorm_plain(x, w, **kw)
@@ -719,10 +802,19 @@ def _kernel_modules():
             "ssd_scan": ssd_scan, "moe_gmm": moe_gmm, "wavefront": wavefront}
 
 
-def expected_launches(cfg) -> dict:
+def expected_launches(cfg, prompt: int = SERVE_PROMPT) -> dict:
     """Kernel launches of one ``generate`` call of SERVE_GEN tokens: flash
     and the SSD's kernels in prefill once, rmsnorm and moe_gmm in prefill
     and every decode step."""
+    if cfg.family == "encdec":
+        # the encoder once (flash; ln1, ln2 a layer and its final norm),
+        # the decoder's self- and cross-attention in prefill, its ln1, ln_x
+        # and ln2 a layer and its final norm in prefill and every decode
+        # step (decode's attention is torch ops)
+        return {"flash_attention_fwd": cfg.encoder_layers + 2 * cfg.n_layers,
+                "rmsnorm": 2 * cfg.encoder_layers + 1
+                + (3 * cfg.n_layers + 1) * SERVE_GEN,
+                "ssd_scan": 0, "moe_gmm": 0, "wavefront": 0}
     if cfg.family == "ssm":
         # per layer its norm + the gate norm, one final norm; the SSD with
         # the final state runs three kernels in bf16 whatever the chunks
@@ -737,7 +829,7 @@ def expected_launches(cfg) -> dict:
         # the SSD runs in prefill: in bf16 three kernels (chunk state,
         # state passing, chunk scan) where the prompt has more than one
         # chunk, else the chunk scan alone
-        ssd_kernels = 3 if SERVE_PROMPT > cfg.ssm.chunk else 1
+        ssd_kernels = 3 if prompt > cfg.ssm.chunk else 1
         return {"flash_attention_fwd": n_apps, "rmsnorm": n_norms * SERVE_GEN,
                 "ssd_scan": ssd_kernels * cfg.n_layers, "moe_gmm": 0,
                 "wavefront": 0}
@@ -751,7 +843,7 @@ def expected_launches(cfg) -> dict:
             "wavefront": 0}
 
 
-def phase_serve(arch: str, depth):
+def phase_serve(arch: str, depth, prompt: int):
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import exec_config, generate
     from repro_torch.models import build_model
@@ -767,19 +859,18 @@ def phase_serve(arch: str, depth):
         f"d_model {cfg.d_model}, {n_params / 1e9:.3f} B params in bf16 "
         f"({full_gb:.2f} GB at full depth)")
     # first call: cuBLAS and allocator warm-up, not counted
-    generate(cfg, ex, SERVE_PROMPT, 4, SERVE_BATCH, SEED, model=model)
+    generate(cfg, ex, prompt, 4, SERVE_BATCH, SEED, model=model)
 
     mods = _kernel_modules()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for m in mods.values():
         m.launches = 0
-    g = generate(cfg, ex, SERVE_PROMPT, SERVE_GEN, SERVE_BATCH, SEED,
-                 model=model)
+    g = generate(cfg, ex, prompt, SERVE_GEN, SERVE_BATCH, SEED, model=model)
     launches = {name: m.launches for name, m in mods.items()}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
-    expected = expected_launches(cfg)
+    expected = expected_launches(cfg, prompt)
     log("serve", f"{cfg.name} main-path launches {launches}; expected "
         f"{expected}")
     check(launches == expected,
@@ -794,16 +885,17 @@ def phase_serve(arch: str, depth):
     n_decode = SERVE_GEN - 1
     total_s = g.prefill_s + g.decode_s
     log("serve", {"model": cfg.name, "batch": SERVE_BATCH,
-                  "prompt": SERVE_PROMPT,
+                  "prompt": prompt,
                   "gen": SERVE_GEN, "prefill_ms": g.prefill_s * 1e3,
                   "decode_ms_per_step": g.decode_s * 1e3 / n_decode,
-                  "prompt_tokens_per_s": SERVE_BATCH * SERVE_PROMPT
-                  / g.prefill_s,
+                  "prompt_tokens_per_s": SERVE_BATCH * prompt / g.prefill_s,
                   "decode_tokens_per_s": SERVE_BATCH * n_decode / g.decode_s,
                   "generated_tokens_per_s": SERVE_BATCH * SERVE_GEN / total_s,
                   "peak_mem_gb": peak_gb, "params_b": n_params / 1e9,
-                  "layers": cfg.n_layers, "full_depth": full_depth})
-    return launches, (cfg, ex, model)
+                  "layers": cfg.n_layers, "full_depth": full_depth,
+                  "encoder_layers": cfg.encoder_layers,
+                  "encoder_frames": cfg.encoder_len})
+    return launches, (cfg, ex, model, prompt)
 
 
 # ---------------------------------------------------------------------------
@@ -812,7 +904,7 @@ def phase_serve(arch: str, depth):
 PROFILE_DECODE_STEPS = 8
 
 
-def phase_profile(cfg, ex, model):
+def phase_profile(cfg, ex, model, prompt):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -822,19 +914,22 @@ def phase_profile(cfg, ex, model):
 
     fns = build_model(cfg)
     batch = fns.make_batch(SEED + 1, ShapeConfig(
-        "serve", "prefill", SERVE_PROMPT, SERVE_BATCH), ex)
-    cache = fns.init_cache(SERVE_BATCH, SERVE_PROMPT + PROFILE_DECODE_STEPS,
-                           ex)
+        "serve", "prefill", prompt, SERVE_BATCH), ex)
+    cache = fns.init_cache(SERVE_BATCH, prompt + PROFILE_DECODE_STEPS, ex)
     prefill = make_prefill_step(cfg, ex)
     decode = make_serve_step(cfg, ex)
     tok = batch["tokens"][:, -1]
 
     def run_decode():
         for i in range(PROFILE_DECODE_STEPS):
-            decode(model, cache, tok, SERVE_PROMPT + i)
+            decode(model, cache, tok, prompt + i)
 
-    windows = (("prefill", lambda: prefill(model, batch, cache), 1),
-               ("decode", run_decode, PROFILE_DECODE_STEPS))
+    windows = [("prefill", lambda: prefill(model, batch, cache), 1),
+               ("decode", run_decode, PROFILE_DECODE_STEPS)]
+    if cfg.family == "encdec":
+        # the encoder alone: the rest of the prefill window is the decoder
+        windows.insert(1, ("encode", lambda: model.encode(
+            batch["encoder_embeds"], ex), 1))
     for name, fn, n_calls in windows:
         fn()
         torch.cuda.synchronize()
@@ -875,7 +970,10 @@ def phase_check(arch: str, n_layers: int, prompt: int):
     from repro_torch.launch.serve import exec_config, generate
     from repro_torch.models import build_model
 
-    cfg = dataclasses.replace(get_config(arch), n_layers=n_layers)
+    cfg = get_config(arch)
+    # an encoder-decoder keeps as many encoder layers as decoder layers
+    cfg = dataclasses.replace(cfg, n_layers=n_layers, encoder_layers=(
+        n_layers if cfg.encoder_layers else 0))
     ex_cpu = exec_config(cfg, torch.float32, "cpu")
     ex_gpu = exec_config(cfg, torch.float32, "cuda")
     model_cpu = build_model(cfg).init(SEED, ex_cpu)
@@ -892,7 +990,9 @@ def phase_check(arch: str, n_layers: int, prompt: int):
     err = (runs["cuda"].prefill_logits.cpu()
            - runs["cpu"].prefill_logits).abs().max().item()
     same = torch.equal(runs["cuda"].tokens.cpu(), runs["cpu"].tokens)
-    log("check", f"{cfg.name} full width, {n_layers} layers, fp32, batch "
+    layers = (f"{n_layers} + {n_layers} layers, {cfg.encoder_len} frames"
+              if cfg.encoder_layers else f"{n_layers} layers")
+    log("check", f"{cfg.name} full width, {layers}, fp32, batch "
         f"{CHECK_BATCH}, prompt {prompt}: max prefill logit err "
         f"{err:.3e} (tol {CHECK_LOGIT_TOL}), first {CHECK_TOKENS} greedy "
         f"tokens equal: {same}")
@@ -1306,22 +1406,27 @@ def phase_calibrate():
     return launches
 
 
-# the serving paths: arch, serve depth (None: the config's), depth of
-# the card-vs-CPU check, its prompt
+# the serving paths: arch, serve depth (None: the config's), serve
+# prompt, depth of the card-vs-CPU check, its prompt
 PATHS = (
-    ("tinyllama-1.1b", None, 2, 200),
+    ("tinyllama-1.1b", None, SERVE_PROMPT, 2, 200),
     # one period of 6 SSM layers + the shared block, then one leftover
     # layer; the prompt is a multiple of the SSD chunk (128)
-    ("zamba2-7b", None, 7, 256),
+    ("zamba2-7b", None, SERVE_PROMPT, 7, 256),
     # 8 of 94 layers: 21.15 B params, 42.3 GB in bf16 (all 94 are 470 GB)
-    ("qwen3-moe-235b-a22b", 8, 1, 128),
+    ("qwen3-moe-235b-a22b", 8, SERVE_PROMPT, 1, 128),
     # all 48 layers (1.6 GB in bf16); the prefill's final states go to
     # decode; the check's prompt is two SSD chunks
-    ("mamba2-780m", None, 2, 256),
+    ("mamba2-780m", None, SERVE_PROMPT, 2, 256),
     # 12 of 60 layers (7.61 B params, 15.2 GB in bf16; all 60 are 68.8 GB
     # before the KV cache); the check's prompt is longer than the 576
     # prefix positions
-    ("llava-next-34b", 12, 1, 640),
+    ("llava-next-34b", 12, SERVE_PROMPT, 1, 640),
+    # all 24 + 24 layers (0.76 B params, 1.5 GB in bf16) over 1500 encoder
+    # frames (30 s of audio); prompt 384 + 64 new tokens is the decoder's
+    # 448-token context (openai/whisper's n_text_ctx); the check runs 2 + 2
+    # layers at the full 1500 frames
+    ("whisper-medium", None, WHISPER_PROMPT, 2, WHISPER_PROMPT),
 )
 SOURCES = {
     # kernel: (source, the TPU kernel it replaces)
@@ -1362,8 +1467,8 @@ def main() -> int:
     phase_build()
     records = phase_kernels()
     by_path = {}
-    for arch, serve_depth, check_depth, prompt in PATHS:
-        launches, served = phase_serve(arch, serve_depth)
+    for arch, serve_depth, serve_prompt, check_depth, prompt in PATHS:
+        launches, served = phase_serve(arch, serve_depth, serve_prompt)
         phase_profile(*served)
         del served   # the served model
         torch.cuda.empty_cache()
@@ -1389,8 +1494,9 @@ def main() -> int:
             "other_shapes": [
                 {k: r[k] for k in ("case", "shape", "dtype", "ms", "plain_ms",
                                    "bound_ms", "bound_by", "library_ms",
-                                   "max_abs_err", "state_ms",
-                                   "state_bound_ms", "state_max_abs_err")
+                                   "max_abs_err", "library_max_abs_err",
+                                   "state_ms", "state_bound_ms",
+                                   "state_max_abs_err")
                  if k in r}
                 for r in rec.get("shapes", [])]})
     log("done", f"all phases in {time.perf_counter() - t_start:.1f} s")

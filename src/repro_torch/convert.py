@@ -4,8 +4,8 @@
 numpy arrays (layers stacked on axis 0, linear weights laid out (in, out))
 and returns a state dict for the port's model of ``cfg.family``
 (``transformer.Transformer`` for dense, MoE and VLM, ``hybrid.Hybrid``,
-``ssm_lm.SSMLM``), whose linear weights are (out, in): each is
-transposed here.  The SSM's ``conv_w`` and the
+``ssm_lm.SSMLM``, ``encdec.EncDec``), whose linear weights are (out, in):
+each is transposed here.  The SSM's ``conv_w`` and the
 experts' (E, in, out) ``w1``, ``w3``, ``w2`` keep their layout.
 """
 from __future__ import annotations
@@ -24,16 +24,20 @@ def _linear(a) -> torch.Tensor:
     return _t(np.asarray(a).T)
 
 
+def _attn(attn: dict, idx, pre: str, cfg: ModelConfig) -> dict:
+    sd = {pre + f"{name}.weight": _linear(attn[name][idx])
+          for name in ("wq", "wk", "wv", "wo")}
+    if cfg.attn.qk_norm:
+        sd[pre + "q_norm"] = _t(attn["q_norm"][idx])
+        sd[pre + "k_norm"] = _t(attn["k_norm"][idx])
+    return sd
+
+
 def _block(blk: dict, idx, pre: str, cfg: ModelConfig) -> dict:
     """One attention + MLP (or MoE) block; ``idx`` picks a layer of a
     stacked tree (``()`` takes the arrays as they are)."""
-    attn = blk["attn"]
     sd = {pre + "ln1": _t(blk["ln1"][idx]), pre + "ln2": _t(blk["ln2"][idx])}
-    for name in ("wq", "wk", "wv", "wo"):
-        sd[pre + f"attn.{name}.weight"] = _linear(attn[name][idx])
-    if cfg.attn.qk_norm:
-        sd[pre + "attn.q_norm"] = _t(attn["q_norm"][idx])
-        sd[pre + "attn.k_norm"] = _t(attn["k_norm"][idx])
+    sd.update(_attn(blk["attn"], idx, pre + "attn.", cfg))
     if "moe" in blk:
         moe = blk["moe"]
         sd[pre + "moe.router.weight"] = _linear(moe["router"][idx])
@@ -56,8 +60,20 @@ def _ssm(p: dict, i: int, pre: str) -> dict:
 
 
 def params_from_jax(tree: dict, cfg: ModelConfig) -> dict:
-    layers = tree["layers"]
     sd = {"embed": _t(tree["embed"]), "final_norm": _t(tree["final_norm"])}
+    if cfg.family == "encdec":
+        sd["pos_embed"] = _t(tree["pos_embed"])
+        sd["enc_norm"] = _t(tree["enc_norm"])
+        for i in range(cfg.encoder_layers):
+            sd.update(_block(tree["enc_layers"], i, f"enc_layers.{i}.", cfg))
+        dec = tree["dec_layers"]
+        for i in range(cfg.n_layers):
+            pre = f"dec_layers.{i}."
+            sd.update(_block(dec, i, pre, cfg))
+            sd[pre + "ln_x"] = _t(dec["ln_x"][i])
+            sd.update(_attn(dec["xattn"], i, pre + "xattn.", cfg))
+        return sd
+    layers = tree["layers"]
     if cfg.family in ("hybrid", "ssm"):
         for i in range(cfg.n_layers):
             sd[f"layers.{i}.ln"] = _t(layers["ln"][i])

@@ -1,5 +1,6 @@
 // Flash-attention forward for Hopper: GQA, causal flag, runtime sliding
-// window, logit softcap; returns o and the fp32 log-sum-exp.
+// window, logit softcap, Sq queries over Sk keys; returns o and the fp32
+// log-sum-exp.
 //
 // Replaces the Pallas TPU kernel
 // src/repro/kernels/flash_attention.py::flash_attention_fwd (_fa_kernel).
@@ -11,6 +12,12 @@
 // never repeats K/V in memory.  Key tiles wholly outside the causal
 // triangle or the window are skipped, and the q tiles with the most live
 // key tiles are scheduled first.
+//
+// Cross-attention (Whisper's decoder over 1500 encoder frames) has Sq !=
+// Sk: as in the reference, q holds the last Sq of the Sk positions, so
+// query i sits at position i + Sk - Sq and the causal mask and the window
+// measure from there (a causal mask needs Sq <= Sk, which the wrapper
+// checks).  Q, O and the lse are laid out over Sq rows, K and V over Sk.
 //
 // Bound, at the served prefill shapes (batch 8, 1024 keys, causal):
 // operations at head_dim 64 (TinyLlama, 32 q / 4 kv heads) and 128
@@ -73,7 +80,7 @@ struct Args {
   const void* v;
   void* o;
   float* lse;
-  int hq, hkv, s, d, window, causal;
+  int hq, hkv, sq, sk, d, window, causal;
   float softcap, scale;
 };
 
@@ -150,30 +157,32 @@ fa_fwd_kernel(Args a) {
   const int tid = threadIdx.x;
   const int tx = tid % 8;   // column lane: 8 lanes of a warp share 4 rows
   const int ty = tid / 8;   // row group: rows ty*4 .. ty*4+3 of the tile
-  const int s = a.s, d = a.d;
-  const int n_qt = (s + kBQ - 1) / kBQ;
+  const int sq = a.sq, sk = a.sk, d = a.d;
+  const int off = sk - sq;   // the position of query row 0
+  const int n_qt = (sq + kBQ - 1) / kBQ;
   const int qt = n_qt - 1 - static_cast<int>(blockIdx.x);
   const int h = blockIdx.y, b = blockIdx.z;
   const int hk = h * a.hkv / a.hq;
   const int q0 = qt * kBQ;
 
   const float* Q = static_cast<const float*>(a.q) +
-                   static_cast<size_t>(b * a.hq + h) * s * d;
+                   static_cast<size_t>(b * a.hq + h) * sq * d;
   const float* K = static_cast<const float*>(a.k) +
-                   static_cast<size_t>(b * a.hkv + hk) * s * d;
+                   static_cast<size_t>(b * a.hkv + hk) * sk * d;
   const float* V = static_cast<const float*>(a.v) +
-                   static_cast<size_t>(b * a.hkv + hk) * s * d;
+                   static_cast<size_t>(b * a.hkv + hk) * sk * d;
   float* O =
-      static_cast<float*>(a.o) + static_cast<size_t>(b * a.hq + h) * s * d;
-  float* L = a.lse + static_cast<size_t>(b * a.hq + h) * s;
+      static_cast<float*>(a.o) + static_cast<size_t>(b * a.hq + h) * sq * d;
+  float* L = a.lse + static_cast<size_t>(b * a.hq + h) * sq;
 
-  load_transposed<D>(Q, q0, s, d, Qs);
+  load_transposed<D>(Q, q0, sq, d, Qs);
 
-  // Live key tiles: keys c with row - c < window for some row >= q0,
-  // and (causal) c <= the tile's last row.  window >= 1 (wrapper).
-  const int last_row = min(q0 + kBQ - 1, s - 1);
-  const int kt_end = (a.causal ? last_row : s - 1) / kBK;
-  const int lo = q0 - a.window + 1;
+  // Live key tiles: keys c with pos - c < window for some position pos >=
+  // q0 + off, and (causal) c <= the tile's last position, which is < Sk
+  // as Sq <= Sk there.  window >= 1 (wrapper), so never empty.
+  const int last_pos = min(q0 + kBQ - 1, sq - 1) + off;
+  const int kt_end = (a.causal ? last_pos : sk - 1) / kBK;
+  const int lo = q0 + off - a.window + 1;
   const int kt_begin = lo > 0 ? lo / kBK : 0;
 
   float m[4], l[4], acc[4][kDc];
@@ -188,8 +197,8 @@ fa_fwd_kernel(Args a) {
   for (int kt = kt_begin; kt <= kt_end; ++kt) {
     const int k0 = kt * kBK;
     __syncthreads();  // the previous tile is no longer read
-    load_transposed<D>(K, k0, s, d, Ks);
-    load_rows<D>(V, k0, s, d, Vs);
+    load_transposed<D>(K, k0, sk, d, Ks);
+    load_rows<D>(V, k0, sk, d, Vs);
     __syncthreads();
 
     // scores: 4 rows x 8 keys per thread
@@ -215,14 +224,15 @@ fa_fwd_kernel(Args a) {
     // scale, softcap, mask; the softmax runs in base 2 (scores * log2 e)
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const int r = q0 + ty * 4 + i;
+      const int r = q0 + ty * 4 + i + off;   // the query's position
       float mx = kNegInf;
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const int c = k0 + score_col(tx, j);
         float x = sc[i][j] * a.scale;
         if (a.softcap > 0.f) x = a.softcap * tanhf(x / a.softcap);
-        const bool live = c < s && (r - c) < a.window && (!a.causal || c <= r);
+        const bool live =
+            c < sk && (r - c) < a.window && (!a.causal || c <= r);
         sc[i][j] = live ? x * kLog2e : kNegInf;
         mx = fmaxf(mx, sc[i][j]);
       }
@@ -289,7 +299,7 @@ fa_fwd_kernel(Args a) {
     lt += __shfl_xor_sync(0xffffffffu, lt, 2);
     lt += __shfl_xor_sync(0xffffffffu, lt, 4);
     const int r = q0 + ty * 4 + i;
-    if (r < s) {
+    if (r < sq) {
       const float inv = 1.f / (lt == 0.f ? 1.f : lt);
 #pragma unroll
       for (int j = 0; j < kDc; ++j) {
@@ -317,10 +327,10 @@ __device__ __forceinline__ float ex2(float x) {
 }
 
 // The online softmax of one lane's two rows of a score tile held in the
-// m16n8 accumulator layout: register 4j + e holds row row0 + 8 (e / 2),
-// key k0 + 8j + 2t + e % 2.  Masked scores are -inf, and a row with no
-// live key yet subtracts 0, so no element needs a test of its own.  The
-// branches on softcap and on the mask are taken once a tile.
+// m16n8 accumulator layout: register 4j + e holds the query at position
+// pos0 + 8 (e / 2), key k0 + 8j + 2t + e % 2.  Masked scores are -inf, and
+// a row with no live key yet subtracts 0, so no element needs a test of its
+// own.  The branches on softcap and on the mask are taken once a tile.
 struct RowSoftmax {
   bool softcap;
   float cap_in;    // scale / softcap
@@ -336,7 +346,7 @@ struct RowSoftmax {
   // Scores -> P in place; alpha: the factor the output rows are rescaled by.
   template <int N>
   __device__ __forceinline__ void step(float (&sc)[N], float (&alpha)[2],
-                                       const Args& a, bool masked, int row0,
+                                       const Args& a, bool masked, int pos0,
                                        int k0, int t) {
     if (softcap) {
 #pragma unroll
@@ -345,10 +355,10 @@ struct RowSoftmax {
     if (masked) {
 #pragma unroll
       for (int j = 0; j < N; ++j) {
-        const int r = row0 + ((j / 2) % 2) * 8;
+        const int r = pos0 + ((j / 2) % 2) * 8;
         const int c = k0 + 8 * (j / 4) + 2 * t + (j % 2);
         const bool live =
-            c < a.s && (r - c) < a.window && (!a.causal || c <= r);
+            c < a.sk && (r - c) < a.window && (!a.causal || c <= r);
         sc[j] = live ? sc[j] : -INFINITY;
       }
     }
@@ -423,8 +433,10 @@ struct Maps {
 };
 
 // Work item w: the (batch, head) pairs, head fastest, cut into groups of
-// ``group``; within a group the q tile (heaviest, i.e. last, first), then
-// the pair.  A group's items share its K and V tiles through L2.
+// ``group``; within a group the q tile (heaviest, i.e. last, first, under
+// a causal mask; without one every q tile has the same live key tiles),
+// then the pair.  n_qt counts Sq's tiles.  A group's items share its K and
+// V tiles through L2.
 struct Item {
   int qt, h, b;
 };
@@ -437,14 +449,16 @@ __device__ __forceinline__ Item item(int w, int n_qt, int hq, int n_bh,
   return {n_qt - 1 - r / size, bh % hq, bh / hq};
 }
 
-// Live key tiles of the q rows [q0, q0 + 128): keys c with row - c <
-// window for some row >= q0 and (causal) c <= the last row; never empty.
+// Live key tiles of the q rows [q0, q0 + 128), at positions from q0 +
+// Sk - Sq: keys c with pos - c < window for some position >= the first and
+// (causal, Sq <= Sk) c <= the last position; never empty.
 template <int BK>
 __device__ __forceinline__ void live_tiles(const Args& a, int q0, int& begin,
                                            int& end) {
-  const int last_row = min(q0 + 127, a.s - 1);
-  end = (a.causal ? last_row : a.s - 1) / BK;
-  const int lo = q0 - a.window + 1;
+  const int off = a.sk - a.sq;
+  const int last_pos = min(q0 + 127, a.sq - 1) + off;
+  end = (a.causal ? last_pos : a.sk - 1) / BK;
+  const int lo = q0 + off - a.window + 1;
   begin = lo > 0 ? lo / BK : 0;
 }
 
@@ -470,7 +484,7 @@ fa_wgmma_kernel(const __grid_constant__ Maps maps, Args a, int nb,
   uint64_t* v_full = k_full + kSt;
   uint64_t* kv_empty = v_full + kSt;
 
-  const int n_qt = (a.s + 127) / 128;
+  const int n_qt = (a.sq + 127) / 128;
   const int n_items = n_qt * a.hq * nb;
 
   if (threadIdx.x == 0) {
@@ -532,6 +546,7 @@ fa_wgmma_kernel(const __grid_constant__ Maps maps, Args a, int nb,
       const Item job = item(w, n_qt, a.hq, nb * a.hq, group);
       const int qw0 = job.qt * 128 + 64 * wg;
       const int row0 = qw0 + warp * 16 + g;   // this lane's rows: +0, +8
+      const int pos_w0 = qw0 + a.sk - a.sq;   // position of row qw0
       int kt_begin, kt_end;
       live_tiles<kBK>(a, job.qt * 128, kt_begin, kt_end);
 
@@ -566,12 +581,12 @@ fa_wgmma_kernel(const __grid_constant__ Maps maps, Args a, int nb,
         if (kt == kt_end) repro::mbar_arrive(q_empty);   // Q is read
 
         // the mask only on tiles that cross the diagonal, the window edge
-        // or S
-        const bool masked = k0 + kBK > a.s ||
-                            (a.causal && k0 + kBK - 1 > qw0) ||
-                            qw0 + 63 - k0 >= a.window;
+        // or Sk
+        const bool masked = k0 + kBK > a.sk ||
+                            (a.causal && k0 + kBK - 1 > pos_w0) ||
+                            pos_w0 + 63 - k0 >= a.window;
         float alpha[2];
-        sm.step(sc, alpha, a, masked, row0, k0, t);
+        sm.step(sc, alpha, a, masked, row0 + a.sk - a.sq, k0, t);
 #pragma unroll
         for (int j = 0; j < N / 2; ++j) {
           o[j] *= alpha[(j / 2) % 2];
@@ -606,14 +621,14 @@ fa_wgmma_kernel(const __grid_constant__ Maps maps, Args a, int nb,
       }
 
       const size_t bq = static_cast<size_t>(job.b) * a.hq + job.h;
-      bf16* O = static_cast<bf16*>(a.o) + bq * a.s * a.d;
-      float* L = a.lse + bq * a.s;
+      bf16* O = static_cast<bf16*>(a.o) + bq * a.sq * a.d;
+      float* L = a.lse + bq * a.sq;
       float lse[2], inv[2];
       sm.finish(lse, inv);
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         const int row = row0 + 8 * r;
-        if (row >= a.s) continue;
+        if (row >= a.sq) continue;
 #pragma unroll
         for (int j = 0; j < N / 8; ++j) {
           const int col = 8 * j + 2 * t;
@@ -631,7 +646,8 @@ fa_wgmma_kernel(const __grid_constant__ Maps maps, Args a, int nb,
 }
 
 // A (B*H, S, d) bf16 tensor as boxes of 64 columns x ``rows`` rows, read
-// with the 128-byte swizzle; rows past S and columns past d read zeros.
+// with the 128-byte swizzle; rows past S and columns past d read zeros (Q
+// is mapped over Sq rows, K and V over Sk: each map its own S).
 bool encode_map(CUtensorMap* map, const void* ptr, int bh, int s, int d,
                 int rows) {
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(d),
@@ -670,16 +686,17 @@ int launch_wgmma(const Args& a, int b, cudaStream_t stream) {
   const int n_sm = repro::sm_count(dev);
   if (n_sm <= 0) return static_cast<int>(cudaErrorInvalidDevice);
   Maps maps;
-  if (!encode_map(&maps.q, a.q, b * a.hq, a.s, a.d, 64) ||
-      !encode_map(&maps.k, a.k, b * a.hkv, a.s, a.d, P::kBK) ||
-      !encode_map(&maps.v, a.v, b * a.hkv, a.s, a.d, P::kBK)) {
+  if (!encode_map(&maps.q, a.q, b * a.hq, a.sq, a.d, 64) ||
+      !encode_map(&maps.k, a.k, b * a.hkv, a.sk, a.d, P::kBK) ||
+      !encode_map(&maps.v, a.v, b * a.hkv, a.sk, a.d, P::kBK)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const long long items = static_cast<long long>((a.s + 127) / 128) * a.hq * b;
+  const long long items =
+      static_cast<long long>((a.sq + 127) / 128) * a.hq * b;
   const int grid = static_cast<int>(items < n_sm ? items : n_sm);
   // heads per group: their K and V, read once per q tile, take at most
   // half of the 50 MB L2 (GQA heads share theirs)
-  const double kv_bytes_per_head = 4.0 * a.s * a.d * a.hkv / a.hq;
+  const double kv_bytes_per_head = 4.0 * a.sk * a.d * a.hkv / a.hq;
   const double fit = 25e6 / kv_bytes_per_head;
   const int bh = b * a.hq;
   const int group = fit < 1.0 ? 1 : (fit > bh ? bh : static_cast<int>(fit));
@@ -700,7 +717,7 @@ int launch(const Args& a, int b, cudaStream_t stream) {
         static_cast<int>(smem)));
   });
   if (err) return err;
-  const dim3 grid((a.s + kBQ - 1) / kBQ, a.hq, b);
+  const dim3 grid((a.sq + kBQ - 1) / kBQ, a.hq, b);
   fa_fwd_kernel<D><<<grid, kThreads, smem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
@@ -726,20 +743,22 @@ int launch_bf16(const Args& a, int b, cudaStream_t stream) {
 
 }  // namespace
 
-// q, o: (B, Hq, S, d); k, v: (B, Hkv, S, d), contiguous, one dtype,
-// d <= 256 a multiple of 8; lse: (B, Hq, S) fp32.  window >= 1 (pass
-// S + 64 for "no window").
+// q, o: (B, Hq, Sq, d); k, v: (B, Hkv, Sk, d), contiguous, one dtype,
+// d <= 256 a multiple of 8; lse: (B, Hq, Sq) fp32; q at the last Sq of the
+// Sk positions, Sq <= Sk if causal.  window >= 1 (pass Sk + 64 for "no
+// window").
 // Returns the CUDA error of the launch (0 on success).
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
                                    void* o, float* lse, int b, int hq, int hkv,
-                                   int s, int d, int window, int causal,
-                                   float softcap, float scale, int dtype,
-                                   void* stream) {
-  if (b == 0 || hq == 0 || s == 0) return 0;
-  if (d < 8 || d > 256 || d % 8) {
+                                   int sq, int sk, int d, int window,
+                                   int causal, float softcap, float scale,
+                                   int dtype, void* stream) {
+  if (b == 0 || hq == 0 || sq == 0) return 0;
+  if (d < 8 || d > 256 || d % 8 || sk < 1 || (causal && sq > sk)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const Args a{q, k, v, o, lse, hq, hkv, s, d, window, causal, softcap, scale};
+  const Args a{q,  k,  v, o,      lse,    hq,      hkv,
+               sq, sk, d, window, causal, softcap, scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == repro::kFloat32) return launch_fp32(a, b, st);
   if (dtype == repro::kBFloat16) return launch_bf16(a, b, st);

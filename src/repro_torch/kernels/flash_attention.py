@@ -7,8 +7,12 @@ keeps that name: ``flash_attention_fwd`` launches the kernel on CUDA
 tensors only (bfloat16 on the tensor cores through wgmma and TMA, float32
 on the FMA pipes); ``flash_attention_plain`` is the same function in plain
 PyTorch, which the CPU path and the comparisons on the card use.  Both
-take q (B, Hq, S, D) and k/v (B, Hkv, S, D) and return
-(o (B, Hq, S, D) in q.dtype, lse (B, Hq, S) in float32, natural log).
+take q (B, Hq, Sq, D) and k/v (B, Hkv, Sk, D) and return
+(o (B, Hq, Sq, D) in q.dtype, lse (B, Hq, Sq) in float32, natural log).
+At Sq != Sk (cross-attention) q holds the last Sq of the Sk positions, as
+in the reference: query i sits at position i + Sk - Sq, which the causal
+mask and the window measure from.  A causal mask needs Sq <= Sk, so that
+every query row keeps a key.
 ``flash_attention_bwd_plain`` is the gradient from the saved o and lse,
 in torch ops on either device (the reference has no Pallas backward).
 """
@@ -24,7 +28,7 @@ from repro_torch.kernels.ref import NEG_INF
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 256
-# "no window" is passed as S + KERNEL_BLOCK: wider than any row-key distance
+# "no window" is passed as Sk + KERNEL_BLOCK: wider than any row-key distance
 KERNEL_BLOCK = 64
 # widths each dtype's kernel is instantiated at; head_dim d runs at the
 # smallest that holds it, with zeros past d (the bf16 kernel's tiles are
@@ -45,8 +49,28 @@ def kernel_head_dim(d: int, dtype=torch.float32) -> int:
     return next(w for w in KERNEL_HEAD_DIMS[dtype] if w >= d)
 
 
+def check_shapes(q, k, v, causal):
+    """q (B, Hq, Sq, D), k and v (B, Hkv, Sk, D) of one shape, Hq a
+    multiple of Hkv, and Sq <= Sk under a causal mask; raises otherwise."""
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(f"q: (B, Hq, Sq, D); k, v: (B, Hkv, Sk, D) of one "
+                         f"shape, got q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)}")
+    b, hq, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    if k.shape[0] != b or k.shape[3] != d:
+        raise ValueError(f"q and k differ in batch or head_dim: q "
+                         f"{tuple(q.shape)}, k {tuple(k.shape)}")
+    if hkv == 0 or hq % hkv:
+        raise ValueError(f"Hq must be a multiple of Hkv, got Hq={hq}, "
+                         f"Hkv={hkv}")
+    if causal and sq > sk:
+        raise ValueError(f"a causal mask needs Sq <= Sk (q holds the last "
+                         f"Sq of the Sk positions), got Sq={sq}, Sk={sk}")
+
+
 def _check_window(window, s, block):
-    """None means "never limits" (S + block, as the Pallas kernel)."""
+    """None means "never limits" (Sk + block, as the Pallas kernel)."""
     if window is None:
         return s + block
     window = int(window)
@@ -59,16 +83,15 @@ def flash_attention_plain(q, k, v, window=None, *, causal=True, softcap=0.0,
                           scale=None, block=128):
     """The kernel's function in plain PyTorch: the online softmax over
     ``block``-key tiles, in float32, with the kernel's masking."""
+    check_shapes(q, k, v, causal)
     b, hq, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
-    if sq != sk:
-        raise ValueError(f"self-attention only: Sq={sq} != Sk={sk}")
     if scale is None:
         scale = d ** -0.5
     win = _check_window(window, sk, block)
     group = hq // hkv
     qf = q.float()
-    rows = torch.arange(sq, device=q.device)[:, None]
+    rows = torch.arange(sq, device=q.device)[:, None] + (sk - sq)
     acc = torch.zeros((b, hq, sq, d), dtype=torch.float32, device=q.device)
     m = torch.full((b, hq, sq), NEG_INF, dtype=torch.float32, device=q.device)
     l = torch.zeros((b, hq, sq), dtype=torch.float32, device=q.device)
@@ -158,7 +181,7 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, window=None, *,
 @functools.cache
 def _fn():
     fn = _build.load("flash_attention").flash_attention_fwd
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [
         ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -167,9 +190,13 @@ def _fn():
 def flash_attention_fwd(q, k, v, window=None, *, causal=True, softcap=0.0,
                         scale=None):
     """Launch the kernel.  q, k, v: contiguous float32 or bfloat16 CUDA
-    tensors of one dtype, Sq == Sk, head_dim a multiple of 8 up to 256,
-    Hq % Hkv == 0."""
+    tensors of one dtype, head_dim a multiple of 8 up to 256, Hq % Hkv ==
+    0, Sq <= Sk under a causal mask."""
     global launches
+    check_shapes(q, k, v, causal)
+    b, hq, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    win = _check_window(window, sk, KERNEL_BLOCK)
     if not all(t.is_cuda and t.device == q.device for t in (q, k, v)):
         raise ValueError("flash_attention_fwd takes q, k, v on one CUDA "
                          "device")
@@ -177,24 +204,13 @@ def flash_attention_fwd(q, k, v, window=None, *, causal=True, softcap=0.0,
         raise TypeError(f"flash_attention_fwd takes float32 or bfloat16 "
                         f"q, k, v of one dtype, got {q.dtype}, {k.dtype}, "
                         f"{v.dtype}")
-    if q.dim() != 4 or k.shape != v.shape or k.dim() != 4:
-        raise ValueError("q: (B, Hq, S, D); k, v: (B, Hkv, S, D)")
-    b, hq, sq, d = q.shape
-    hkv, sk = k.shape[1], k.shape[2]
-    if k.shape[0] != b or k.shape[3] != d or sq != sk:
-        raise ValueError(f"self-attention only: q {tuple(q.shape)}, "
-                         f"k {tuple(k.shape)}")
     kernel_head_dim(d, q.dtype)
-    if hkv == 0 or hq % hkv:
-        raise ValueError(f"Hq must be a multiple of Hkv, got Hq={hq}, "
-                         f"Hkv={hkv}")
     if not all(t.is_contiguous() and t.data_ptr() % 16 == 0
                for t in (q, k, v)):
         raise ValueError("flash_attention_fwd takes contiguous, 16-byte "
                          "aligned q, k, v")
     if scale is None:
         scale = d ** -0.5
-    win = _check_window(window, sk, KERNEL_BLOCK)
     o = torch.empty_like(q)
     lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
     if o.numel() == 0:
@@ -202,9 +218,9 @@ def flash_attention_fwd(q, k, v, window=None, *, causal=True, softcap=0.0,
     fn = _fn()
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                 lse.data_ptr(), b, hq, hkv, sq, d, win, int(bool(causal)),
-                 float(softcap), float(scale), DTYPE_CODES[q.dtype],
-                 torch.cuda.current_stream().cuda_stream)
+                 lse.data_ptr(), b, hq, hkv, sq, sk, d, win,
+                 int(bool(causal)), float(softcap), float(scale),
+                 DTYPE_CODES[q.dtype], torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {err}")

@@ -68,11 +68,13 @@ class _FlashAttention(torch.autograd.Function):
 
 def flash_attention(q, k, v, *, window=None, causal=True, softcap=0.0,
                     scale=None, block=128):
-    """Self-attention.  q: (B,Hq,S,D); k/v: (B,Hkv,S,D) -> o (B,Hq,S,D).
+    """Attention.  q: (B,Hq,Sq,D); k/v: (B,Hkv,Sk,D) -> o (B,Hq,Sq,D).
 
-    ``window``: None (full) or an int >= 1.  ``block`` is the key tile of
-    the plain version and the query tile of the backward; the kernel's
-    tiles are fixed.  Differentiable in q, k and v.
+    Sq == Sk is self-attention; at Sq != Sk (cross-attention) q holds the
+    last Sq of the Sk positions, as in the reference, and a causal mask
+    needs Sq <= Sk.  ``window``: None (full) or an int >= 1.  ``block``
+    is the key tile of the plain version and the query tile of the
+    backward; the kernel's tiles are fixed.  Differentiable in q, k and v.
     """
     if scale is None:
         scale = q.shape[-1] ** -0.5

@@ -3,17 +3,22 @@
 
 ``python -m repro_torch.launch.serve --arch tinyllama-1.1b`` (or
 ``--arch zamba2-7b``, ``--arch mamba2-780m``, ``--arch llava-next-34b``,
-``--arch mixtral-8x7b``, ``--arch qwen3-moe-235b-a22b``) serves on the
-GPU in bfloat16; ``--device cpu`` runs on the CPU in float32 (plain
-PyTorch in place of the kernels).  Mamba2-780M carries each layer's
-final SSD state from prefill into decode; LLaVA-NeXT-34B's prompt starts
-with its ``n_prefix_tokens`` (576) image-patch embeddings, seeded random
-normals standing in for the vision tower, so its ``--prompt-len`` is at
-least 576 (8 with ``--reduced``).  LLaVA-NeXT-34B's 60 layers are 68.8 GB of bfloat16 weights before
-the KV cache, most of one 80 GB card; the MoE archs at full depth exceed
-one card (Mixtral-8x7B is 93 GB in bfloat16, Qwen3-MoE 470 GB).
-``--reduced`` serves their tiny versions (8 prefix embeddings for
-LLaVA).
+``--arch whisper-medium``, ``--arch mixtral-8x7b``, ``--arch
+qwen3-moe-235b-a22b``) serves on the GPU in bfloat16; ``--device cpu``
+runs on the CPU in float32 (plain PyTorch in place of the kernels).
+Mamba2-780M carries each layer's final SSD state from prefill into
+decode; LLaVA-NeXT-34B's prompt starts with its ``n_prefix_tokens`` (576)
+image-patch embeddings, seeded random normals standing in for the vision
+tower, so its ``--prompt-len`` is at least 576 (8 with ``--reduced``).
+Whisper-medium's encoder runs once a batch over ``encoder_len`` (1500;
+16 with ``--reduced``) seeded random frame embeddings standing in for the
+audio frontend, and its decoder reads them through cross-attention
+(Whisper's decoder context is 448 tokens, prompt and new tokens, which
+nothing here enforces).  LLaVA-NeXT-34B's 60 layers are 68.8 GB of
+bfloat16 weights before the KV cache, most of one 80 GB card; the MoE
+archs at full depth exceed one card (Mixtral-8x7B is 93 GB in bfloat16,
+Qwen3-MoE 470 GB).  ``--reduced`` serves their tiny versions (8 prefix
+embeddings for LLaVA).
 """
 from __future__ import annotations
 
@@ -94,8 +99,9 @@ def main(argv=None):
     ap.add_argument("--arch", default="tinyllama-1.1b",
                     help="a dense (tinyllama-1.1b, gemma2-2b, ...), hybrid "
                     "(zamba2-7b), SSM (mamba2-780m), VLM (llava-next-34b, "
-                    "a prompt of at least its 576 prefix embeddings) or MoE "
-                    "(mixtral-8x7b, qwen3-moe-235b-a22b) arch")
+                    "a prompt of at least its 576 prefix embeddings), "
+                    "encoder-decoder (whisper-medium, 1500 encoder frames) "
+                    "or MoE (mixtral-8x7b, qwen3-moe-235b-a22b) arch")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen-len", type=int, default=16)

@@ -1,6 +1,6 @@
 """Unified model API: ``build_model(cfg)`` -> ModelFns (counterpart of
-``repro/models/api.py``; the dense, MoE, hybrid, SSM and VLM families so
-far).
+``repro/models/api.py``; every family: dense, MoE, hybrid, SSM, VLM and
+encdec).
 
   init(seed, ex) -> model (an nn.Module holding the parameters)
   prefill(model, batch, ex, cache=None) -> (logits, cache)
@@ -16,7 +16,7 @@ from typing import Callable
 import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
-from repro_torch.models import hybrid, ssm_lm, transformer
+from repro_torch.models import encdec, hybrid, ssm_lm, transformer
 from repro_torch.models.common import check_device
 
 # family -> (seeded init, cache allocator)
@@ -26,6 +26,7 @@ _FAMILIES = {
     "hybrid": (hybrid.hybrid_init, hybrid.init_cache),
     "ssm": (ssm_lm.ssm_lm_init, ssm_lm.init_cache),
     "vlm": (transformer.lm_init, transformer.init_cache),
+    "encdec": (encdec.encdec_init, encdec.init_cache),
 }
 PORTED_FAMILIES = tuple(_FAMILIES)
 
@@ -51,11 +52,10 @@ def build_model(cfg: ModelConfig) -> ModelFns:
         return family_init(cfg, ex, seed)
 
     def prefill(model, batch, ex, cache=None):
-        prefix = batch.get("prefix_embeds")
-        if prefix is None:
-            return model.prefill(batch["tokens"], ex, cache)
-        return model.prefill(batch["tokens"], ex, cache,
-                             prefix_embeds=prefix)
+        # a vlm's prefix embeddings, an encdec's encoder frames
+        extra = {k: batch[k] for k in ("prefix_embeds", "encoder_embeds")
+                 if k in batch}
+        return model.prefill(batch["tokens"], ex, cache, **extra)
 
     def decode_step(model, cache, tokens, pos, ex):
         return model.decode_step(cache, tokens, pos, ex)
@@ -66,8 +66,10 @@ def build_model(cfg: ModelConfig) -> ModelFns:
 
     def make_batch(seed, shape: ShapeConfig, ex):
         # drawn on the CPU so every device gets the same prompt; a vlm
-        # config's prefix embeddings (standing in for the vision tower)
-        # are standard normals from the same generator, in compute dtype
+        # config's prefix embeddings (standing in for the vision tower) and
+        # an encdec config's encoder frames (standing in for the audio
+        # frontend) are standard normals from the same generator, in
+        # compute dtype
         device = check_device(ex.device)
         gen = torch.Generator().manual_seed(seed)
         tokens = torch.randint(0, cfg.vocab,
@@ -79,6 +81,11 @@ def build_model(cfg: ModelConfig) -> ModelFns:
                 (shape.global_batch, cfg.n_prefix_tokens, cfg.d_model),
                 generator=gen)
             batch["prefix_embeds"] = prefix.to(ex.compute_dtype).to(device)
+        if cfg.family == "encdec":
+            frames = torch.randn(
+                (shape.global_batch, cfg.encoder_len, cfg.d_model),
+                generator=gen)
+            batch["encoder_embeds"] = frames.to(ex.compute_dtype).to(device)
         return batch
 
     return ModelFns(cfg=cfg, init=init, prefill=prefill,

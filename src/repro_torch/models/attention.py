@@ -1,5 +1,5 @@
-"""Attention block: prefill (self-attention) and one-token decode with a KV
-cache (counterpart of ``repro/models/attention.py``)."""
+"""Attention block: prefill (self- or cross-attention) and one-token
+decode with a KV cache (counterpart of ``repro/models/attention.py``)."""
 from __future__ import annotations
 
 import torch
@@ -57,15 +57,27 @@ def is_rolling(a: AttnConfig) -> bool:
 
 
 def attn_train(attn: Attention, x, a: AttnConfig, *, window, norm_eps, rope,
-               ex):
-    """Full-sequence causal self-attention (prefill).
+               ex, causal=True, kv_source=None):
+    """Full-sequence attention (prefill, encoder, cross-attention).
 
-    Returns (out, (k, v)) with k/v in the cache layout (B,Hkv,S,hd).
+    ``kv_source``: None for self-attention (rope on q and k, the causal
+    flag and the window as given); else (B, Sk, D_model), the source K and
+    V are projected from: cross-attention, with no rope, no mask and no
+    window (Whisper's decoder over the encoder output; ``rope`` is unused).
+    Returns (out, (k, v)) with k/v in the cache layout (B,Hkv,S or Sk,hd).
     """
     b, s, _ = x.shape
-    q, k, v = _project_qkv(attn, x, a, rope, norm_eps)
+    if kv_source is None:
+        q, k, v = _project_qkv(attn, x, a, rope, norm_eps)
+    else:
+        sk = kv_source.shape[1]
+        q = attn.wq(x).view(b, s, a.n_heads, a.head_dim).transpose(1, 2)
+        k = attn.wk(kv_source).view(b, sk, a.n_kv_heads, a.head_dim)
+        v = attn.wv(kv_source).view(b, sk, a.n_kv_heads, a.head_dim)
+        k, v = k.transpose(1, 2), v.transpose(1, 2)
+        window, causal = None, False
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    o = ops.flash_attention(q, k, v, window=window, causal=True,
+    o = ops.flash_attention(q, k, v, window=window, causal=causal,
                             softcap=a.attn_softcap, block=ex.attn_block)
     out = o.transpose(1, 2).reshape(b, s, a.n_heads * a.head_dim)
     return attn.wo(out), (k, v)
@@ -92,6 +104,18 @@ def attn_decode(attn: Attention, x, cache_k, cache_v, pos: int,
         # every slot is within the window; mask only unfilled slots
         pos, window = min(pos, smax - 1), None
     o = ops.decode_attention(q, cache_k, cache_v, pos, window=window,
+                             softcap=a.attn_softcap)
+    out = o.transpose(1, 2).reshape(b, 1, a.n_heads * a.head_dim)
+    return attn.wo(out)
+
+
+def cross_decode(attn: Attention, x, cross_k, cross_v, a: AttnConfig):
+    """One-token cross-attention over the cached cross K/V (B,Hkv,Sk,hd),
+    projected once in prefill: the decode attention at pos = Sk - 1, which
+    sees every key.  x: (B,1,D_model)."""
+    b = x.shape[0]
+    q = attn.wq(x).view(b, 1, a.n_heads, a.head_dim).transpose(1, 2)
+    o = ops.decode_attention(q, cross_k, cross_v, cross_k.shape[2] - 1,
                              softcap=a.attn_softcap)
     out = o.transpose(1, 2).reshape(b, 1, a.n_heads * a.head_dim)
     return attn.wo(out)

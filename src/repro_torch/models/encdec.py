@@ -1,0 +1,165 @@
+"""Whisper-style encoder-decoder (counterpart of ``repro/models/encdec.py``;
+the audio conv frontend is a stub in both packages).
+
+The encoder takes precomputed frame embeddings (B, encoder_len, D) plus a
+learned ``pos_embed`` and runs bidirectional attention; the decoder runs
+causal self-attention, then cross-attention over the encoder output, then
+the MLP.  As in the reference (not the published Whisper): rmsnorm, rope
+in the encoder and in the decoder's self-attention, none on the cross K/V,
+a tanh-GELU MLP and tied embeddings.  Prefill writes the decoder's self
+K/V and the cross K/V into the preallocated cache in place; decode
+updates the self K/V only and reads the cross K/V as they are.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import attention, common
+from repro_torch.models.transformer import Block
+
+
+class DecBlock(Block):
+    """A decoder layer: the encoder layer's ln1, attn, ln2 and mlp, and the
+    cross-attention with its norm ``ln_x``."""
+
+    def __init__(self, cfg: ModelConfig, *, device=None, dtype=None):
+        super().__init__(cfg, device=device, dtype=dtype)
+        self.ln_x = torch.nn.Parameter(
+            torch.empty(cfg.d_model, device=device, dtype=dtype))
+        self.xattn = attention.Attention(cfg.d_model, cfg.attn,
+                                         device=device, dtype=dtype)
+
+
+class EncDec(torch.nn.Module):
+    """Parameters of the encoder-decoder; linear weights (out, in), the
+    transpose of the reference's layout."""
+
+    def __init__(self, cfg: ModelConfig, *, device=None, dtype=None):
+        super().__init__()
+        kw = {"device": device, "dtype": dtype}
+        self.cfg = cfg
+        self.embed = torch.nn.Parameter(
+            torch.empty(cfg.vocab, cfg.d_model, **kw))
+        self.pos_embed = torch.nn.Parameter(
+            torch.empty(cfg.encoder_len, cfg.d_model, **kw))
+        self.enc_layers = torch.nn.ModuleList(
+            Block(cfg, **kw) for _ in range(cfg.encoder_layers))
+        self.dec_layers = torch.nn.ModuleList(
+            DecBlock(cfg, **kw) for _ in range(cfg.n_layers))
+        self.enc_norm = torch.nn.Parameter(torch.empty(cfg.d_model, **kw))
+        self.final_norm = torch.nn.Parameter(torch.empty(cfg.d_model, **kw))
+
+    @torch.no_grad()
+    def encode(self, frames, ex):
+        """frames: (B, encoder_len, D) stub embeddings -> (B, len, D)."""
+        cfg, a = self.cfg, self.cfg.attn
+        shape = tuple(frames.shape)
+        if len(shape) != 3 or shape[1:] != (cfg.encoder_len, cfg.d_model):
+            raise ValueError(f"encoder_embeds {shape} must be (B, "
+                             f"{cfg.encoder_len}, {cfg.d_model})")
+        x = frames.to(ex.compute_dtype) + self.pos_embed
+        rope = common.rope_angles(
+            torch.arange(cfg.encoder_len, device=frames.device), a.head_dim,
+            a.rope_theta)
+        for blk in self.enc_layers:
+            h = common.norm(x, blk.ln1, cfg.norm_eps)
+            att, _ = attention.attn_train(blk.attn, h, a, window=None,
+                                          norm_eps=cfg.norm_eps, rope=rope,
+                                          ex=ex, causal=False)
+            x = x + att
+            h = common.norm(x, blk.ln2, cfg.norm_eps)
+            x = x + blk.ffn(h, cfg)
+        return common.norm(x, self.enc_norm, cfg.norm_eps)
+
+    @torch.no_grad()
+    def prefill(self, tokens, ex, cache=None, encoder_embeds=None):
+        """tokens: (B, S); encoder_embeds: (B, encoder_len, D) -> (last-
+        position logits (B, V), cache).  ``cache``: None allocates one of S
+        positions; a larger cache from ``init_cache`` receives the prompt's
+        self K/V in place at [0, S), and the cross K/V whole."""
+        if encoder_embeds is None:
+            raise ValueError("an encdec prefill needs encoder_embeds")
+        cfg, a = self.cfg, self.cfg.attn
+        b, s = tokens.shape
+        if cache is None:
+            cache = init_cache(cfg, b, s, ex.compute_dtype, tokens.device)
+        enc = self.encode(encoder_embeds, ex)
+        x = self.embed[tokens].to(ex.compute_dtype)
+        rope = common.rope_angles(torch.arange(s, device=tokens.device),
+                                  a.head_dim, a.rope_theta)
+        for i, blk in enumerate(self.dec_layers):
+            h = common.norm(x, blk.ln1, cfg.norm_eps)
+            att, (k, v) = attention.attn_train(
+                blk.attn, h, a, window=None, norm_eps=cfg.norm_eps,
+                rope=rope, ex=ex)
+            x = x + att
+            h = common.norm(x, blk.ln_x, cfg.norm_eps)
+            xa, (xk, xv) = attention.attn_train(
+                blk.xattn, h, a, window=None, norm_eps=cfg.norm_eps,
+                rope=None, ex=ex, kv_source=enc)
+            x = x + xa
+            h = common.norm(x, blk.ln2, cfg.norm_eps)
+            x = x + blk.ffn(h, cfg)
+            cache["k"][i, :, :, :s] = k
+            cache["v"][i, :, :, :s] = v
+            cache["xk"][i] = xk
+            cache["xv"][i] = xv
+        x = common.norm(x, self.final_norm, cfg.norm_eps)
+        return x[:, -1] @ self.embed.T, cache
+
+    @torch.no_grad()
+    def decode_step(self, cache, tokens, pos: int, ex):
+        """tokens: (B,); pos: int.  -> (logits (B, V), cache with the new
+        self K/V written in place)."""
+        cfg, a = self.cfg, self.cfg.attn
+        x = self.embed[tokens][:, None, :].to(ex.compute_dtype)
+        rope = common.rope_angles(
+            torch.arange(pos, pos + 1, device=tokens.device), a.head_dim,
+            a.rope_theta)
+        for i, blk in enumerate(self.dec_layers):
+            h = common.norm(x, blk.ln1, cfg.norm_eps)
+            x = x + attention.attn_decode(
+                blk.attn, h, cache["k"][i], cache["v"][i], pos, a,
+                window=None, norm_eps=cfg.norm_eps, rope=rope)
+            h = common.norm(x, blk.ln_x, cfg.norm_eps)
+            x = x + attention.cross_decode(blk.xattn, h, cache["xk"][i],
+                                           cache["xv"][i], a)
+            h = common.norm(x, blk.ln2, cfg.norm_eps)
+            x = x + blk.ffn(h, cfg)
+        x = common.norm(x, self.final_norm, cfg.norm_eps)
+        return x[:, 0] @ self.embed.T, cache
+
+
+def encdec_init(cfg: ModelConfig, ex: common.ExecConfig, seed: int = 0
+                ) -> EncDec:
+    """Seeded random weights, made on ``ex.device`` in ``ex.param_dtype``:
+    linear weights normal * in**-0.5, the embedding and ``pos_embed``
+    normal * 0.02, norm weights ones, as in the reference (whose
+    jax.random draws differ)."""
+    device = common.check_device(ex.device)
+    model = EncDec(cfg, device="meta", dtype=ex.param_dtype)
+    model.to_empty(device=device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if p.dim() == 1:
+                p.fill_(1.0)
+            elif name in ("embed", "pos_embed"):
+                p.normal_(0.0, 0.02, generator=gen)
+            else:
+                common.dense_init(p, gen)
+    return model
+
+
+def init_cache(cfg: ModelConfig, batch: int, seq_len: int, dtype, device):
+    """Zeroed caches: the decoder's self K/V ``k``, ``v`` (L, B, Hkv,
+    seq_len, hd) and the cross K/V ``xk``, ``xv`` (L, B, Hkv, encoder_len,
+    hd), as the reference's ``encdec_init_cache``."""
+    a = cfg.attn
+    self_shape = (cfg.n_layers, batch, a.n_kv_heads, seq_len, a.head_dim)
+    cross_shape = (cfg.n_layers, batch, a.n_kv_heads, cfg.encoder_len,
+                   a.head_dim)
+    return {name: torch.zeros(shape, dtype=dtype, device=device)
+            for name, shape in (("k", self_shape), ("v", self_shape),
+                                ("xk", cross_shape), ("xv", cross_shape))}

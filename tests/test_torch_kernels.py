@@ -7,6 +7,7 @@ are those of the reference's own kernel sweeps: float32 2e-5 (flash) and
 rounding of the bf16 output.  The CUDA kernels themselves run only on a
 card (``chip_smoke.py`` holds them against these plain versions there).
 """
+import jax
 import jax.numpy as jnp
 import ml_dtypes
 import numpy as np
@@ -93,12 +94,30 @@ def test_flash_plain_ragged_blocks_vs_dense(s, block):
     np.testing.assert_allclose(o.numpy(), r.numpy(), rtol=2e-5, atol=2e-5)
 
 
-def test_flash_rejects_cross_attention_and_empty_window():
-    q, k, v = (torch.zeros(1, 2, s, 16) for s in (8, 12, 12))
-    with pytest.raises(ValueError, match="Sq"):
-        ops.flash_attention(q, k, v)
-    with pytest.raises(ValueError, match="window"):
-        ops.flash_attention(q, q, q, window=0)
+REFUSED = {
+    # name: (q shape, k and v shapes, kwargs, message)
+    "batch": ((2, 2, 8, 16), (1, 2, 12, 16), {}, "batch or head_dim"),
+    "head_dim": ((1, 2, 8, 16), (1, 2, 12, 32), {}, "batch or head_dim"),
+    "empty_window": ((1, 2, 8, 16), (1, 2, 8, 16), {"window": 0},
+                     "window"),
+    "causal_sq_over_sk": ((1, 2, 12, 16), (1, 2, 8, 16), {},
+                          "causal mask needs Sq <= Sk"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(REFUSED))
+def test_flash_rejects_cross_attention_and_empty_window(case):
+    """The wrapper (before it asks for a card) and the plain version, and
+    so ``ops.flash_attention``, refuse q and k/v of another batch or
+    head_dim, an empty window and a causal mask over more queries than
+    keys; Sq != Sk itself is cross-attention, which both take."""
+    q_shape, kv_shape, kw, msg = REFUSED[case]
+    q, k = torch.zeros(q_shape), torch.zeros(kv_shape)
+    for fn in (port_flash.flash_attention_fwd,
+               port_flash.flash_attention_plain, ops.flash_attention):
+        with pytest.raises(ValueError, match=msg):
+            fn(q, k, k, **kw)
+    assert port_flash.launches == 0
 
 
 WIDTHS = {torch.float32: [(8, 16), (16, 16), (64, 64), (112, 128),
@@ -260,6 +279,76 @@ def test_flash_gradients_vs_jax_grad(hq, hkv, win, cap, causal):
     got = torch.autograd.grad((o * torch.from_numpy(do)).sum(), ts)
     for name, a, b in zip(("dq", "dk", "dv"), want, got):
         assert b.shape == a.shape and b.dtype == torch.float32
+        np.testing.assert_allclose(b.numpy(), np.asarray(a), rtol=0,
+                                   atol=1e-5, err_msg=name)
+
+
+CROSS = [
+    # b, hq, hkv, sq, sk, window, softcap, causal
+    (2, 4, 2, 24, 64, None, 0.0, True),      # causal, Sq < Sk: the last rows
+    (1, 4, 2, 40, 100, 16, 0.0, True),       # causal with a window
+    (2, 4, 4, 24, 75, None, 0.0, False),     # cross-attention, Sq < Sk
+    (1, 8, 2, 75, 20, None, 0.0, False),     # cross-attention, Sq > Sk
+    (1, 4, 1, 50, 30, 12, 20.0, False),      # Sq > Sk, window + softcap
+    (1, 4, 2, 1, 48, None, 0.0, True),       # one query over the whole cache
+]
+
+
+@pytest.mark.parametrize("b,hq,hkv,sq,sk,win,cap,causal", CROSS)
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_flash_plain_cross_attention_vs_reference(b, hq, hkv, sq, sk, win,
+                                                  cap, causal, dtype):
+    """Sq != Sk: the plain version against the reference's dense
+    ``attention_ref`` and its xla flash path, both with q at the last Sq of
+    the Sk positions; float32 within 2e-5, bfloat16 within one rounding of
+    the output (2e-2)."""
+    from repro.kernels import ops as ref_ops
+    from repro.kernels import ref as jax_ref
+    np_dt, t_dt, j_dt = DTYPES[dtype]
+    q, k, v = _inputs([(b, hq, sq, 32), (b, hkv, sk, 32), (b, hkv, sk, 32)],
+                      np_dt, seed=11)
+    o_t, lse_t = port_flash.flash_attention_plain(
+        _torch(q, t_dt), _torch(k, t_dt), _torch(v, t_dt), win,
+        causal=causal, softcap=cap, block=16)
+    assert o_t.shape == (b, hq, sq, 32) and lse_t.shape == (b, hq, sq)
+    assert o_t.dtype == t_dt
+    jq, jk, jv = (jnp.asarray(a, j_dt) for a in (q, k, v))
+    want = {
+        "attention_ref": jax_ref.attention_ref(jq, jk, jv, causal=causal,
+                                               window=win, softcap=cap),
+        "xla": ref_ops.flash_attention(jq, jk, jv, window=win,
+                                       causal=causal, softcap=cap, block=16,
+                                       backend="xla")}
+    tol = 2e-5 if dtype == "float32" else 2e-2
+    for name, o_j in want.items():
+        np.testing.assert_allclose(_f32(o_t), _f32(np.asarray(o_j,
+                                                              np.float32)),
+                                   rtol=tol, atol=tol, err_msg=name)
+
+
+@pytest.mark.parametrize("sq,sk,win,causal", [(24, 64, None, True),
+                                              (24, 64, 20, True),
+                                              (40, 24, None, False),
+                                              (16, 48, 12, False)])
+def test_flash_gradients_cross_attention_vs_jax_grad(sq, sk, win, causal):
+    """dq, dk, dv at Sq != Sk (GQA 4/2, float32): the port's torch-op
+    backward against ``jax.grad`` of the reference's xla path, within
+    1e-5."""
+    from repro.kernels import ops as ref_ops
+    q, k, v, do = _inputs([(1, 4, sq, 16), (1, 2, sk, 16), (1, 2, sk, 16),
+                           (1, 4, sq, 16)], np.float32, seed=5)
+
+    def loss(q_, k_, v_):
+        o = ref_ops.flash_attention(q_, k_, v_, window=win, causal=causal,
+                                    block=8, backend="xla")
+        return (o * do).sum()
+
+    want = jax.grad(loss, argnums=(0, 1, 2))(q, k, v)
+    ts = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
+    o = ops.flash_attention(*ts, window=win, causal=causal, block=8)
+    got = torch.autograd.grad((o * torch.from_numpy(do)).sum(), ts)
+    for name, a, b in zip(("dq", "dk", "dv"), want, got):
+        assert b.shape == a.shape
         np.testing.assert_allclose(b.numpy(), np.asarray(a), rtol=0,
                                    atol=1e-5, err_msg=name)
 

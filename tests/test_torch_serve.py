@@ -164,15 +164,23 @@ def test_generate_runs_zamba2_reduced_on_cpu():
 
 
 def test_other_families_raise():
-    """encdec (whisper_medium) is the one family not ported yet."""
+    """Every family of the configs is ported; a family outside
+    ``PORTED_FAMILIES`` raises."""
+    from repro_torch.models.api import PORTED_FAMILIES
+    assert set(PORTED_FAMILIES) == {"dense", "moe", "hybrid", "ssm", "vlm",
+                                    "encdec"}
+    cfg = dataclasses.replace(torch_get_config("whisper_medium"),
+                              family="retrieval")
     with pytest.raises(NotImplementedError, match="family"):
-        build_model(torch_get_config("whisper_medium"))
+        build_model(cfg)
 
 
 @pytest.mark.parametrize("arch,family", [("mamba2_780m", "ssm"),
-                                         ("llava_next_34b", "vlm")])
+                                         ("llava_next_34b", "vlm"),
+                                         ("whisper_medium", "encdec")])
 def test_ssm_and_vlm_families_build(arch, family):
-    """The ssm and vlm families build at full size (no weights made)."""
+    """The ssm, vlm and encdec families build at full size (no weights
+    made)."""
     from repro_torch.models.api import PORTED_FAMILIES
     cfg = torch_get_config(arch)
     assert cfg.family == family and family in PORTED_FAMILIES
