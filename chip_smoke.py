@@ -69,7 +69,24 @@ Phases, in order; any failure raises and exits non-zero:
    fitted peak may pass the card's float32 or HBM peak, and no fit's half
    may sit at the top of its search (a rate that never bent); then
    ``paper_qwen3`` on the fitted constants, on the card and on the CPU
-   path, with identical records.
+   path, with identical records;
+7. grad   - rmsnorm, the SSD (with and without its state), the gmm and
+   flash through ``ops`` at the train and serving shapes, bf16 and fp32:
+   the output has a grad_fn on the card, each input's gradient matches
+   autograd through the plain version on the same tensors, and forward +
+   backward is timed with its bound, the plain version and the library;
+8. train  - TinyLlama-1.1B and Mamba2-780M at full width and depth, random
+   weights from seed 0, float32 master weights and bf16 compute, batch 8
+   x 1024 through ``launch.steps.make_train_step``: 3 warm-up and 10
+   timed steps (step ms, tokens/s, model FLOP/s, peak memory), the
+   launches of one step (the forward's: the backward launches none), one
+   profiled step (forward, backward by node, optimiser, kernel classes,
+   idle share), 20 steps on one fixed batch whose loss must fall, and 2
+   layers at full width, batch 2 x 256: one step on the card against the
+   CPU in float32 (loss, every gradient, m, v; the update against the
+   CPU's AdamW on the card's gradients), and each gradient's bf16 error
+   against its device's float32 one, the card's (the kernels) within
+   twice the CPU's (the plain versions) + 1e-3.
 
 The last lines are the card's name and power limit (nvidia-smi), one JSON
 line ``{"kernels": [...]}`` and ``{"ok": true, "device": {...}}``.
@@ -1406,6 +1423,523 @@ def phase_calibrate():
     return launches
 
 
+# ---------------------------------------------------------------------------
+# 7. grad: the ops' gradients on the card (ROADMAP C12)
+# ---------------------------------------------------------------------------
+GRAD_CASES = [
+    # name, op, shape, dtype.  rmsnorm: (rows, D); ssd: (Bb, S, H, P, G,
+    # N, chunk); gmm: (experts, rows per expert, K, N, block_t); flash:
+    # (B, Hq, Hkv, S, D), causal.  TinyLlama's and Mamba2's norm widths,
+    # Mamba2's SSD and TinyLlama's attention at the train shape (batch 8 x
+    # 1024), Qwen3-MoE's gmm w1 at prefill and at decode.
+    ("tinyllama_ln", "rmsnorm", (SERVE_BATCH * SERVE_PROMPT, 2048), BF16),
+    ("tinyllama_ln_fp32", "rmsnorm", (SERVE_BATCH * SERVE_PROMPT, 2048),
+     FP32),
+    ("mamba2_ln", "rmsnorm", (SERVE_BATCH * SERVE_PROMPT, 1536), BF16),
+    ("mamba2_gate_norm", "rmsnorm", (SERVE_BATCH * SERVE_PROMPT, 3072), BF16),
+    ("mamba2_gate_norm_fp32", "rmsnorm", (SERVE_BATCH * SERVE_PROMPT, 3072),
+     FP32),
+    ("mamba2_ssd", "ssd", (8, 1024, 48, 64, 1, 128, 128), BF16),
+    ("mamba2_ssd_state", "ssd_state", (8, 1024, 48, 64, 1, 128, 128), BF16),
+    ("mamba2_ssd_fp32", "ssd", (8, 1024, 48, 64, 1, 128, 128), FP32),
+    ("qwen3_w1", "gmm", (128, 640, 4096, 1536, 128), BF16),
+    ("qwen3_decode", "gmm", (128, 8, 4096, 1536, 8), BF16),
+    ("qwen3_decode_fp32", "gmm", (128, 8, 4096, 1536, 8), FP32),
+    ("tinyllama_flash", "flash", (8, 32, 4, 1024, 64), BF16),
+    ("flash_fp32", "flash", (2, 32, 4, 512, 64), FP32),
+]
+# Relative L2 of each gradient of the op (kernel forward) against autograd
+# through its plain version on the same CUDA tensors.  rmsnorm and ssd:
+# the backward is that same autograd, recomputed from the same inputs, so
+# only float32 sums in another order (atomics) differ, which move a bf16
+# gradient by an ulp at rare elements.  gmm: dx is the kernel's own
+# rounding of each float32 sum to the output dtype, dw float32 sums over
+# an expert's rows at once where autograd adds block by block.  flash: the
+# backward reads the kernel's o and lse, each one bf16 rounding (or an
+# fp32 exp2/log) from the plain version's.
+GRAD_TOL = {"rmsnorm": {BF16: 1e-3, FP32: 1e-6},
+            "ssd": {BF16: 1e-3, FP32: 1e-6},
+            "gmm": {BF16: 1e-2, FP32: 1e-5},
+            "flash": {BF16: 2e-2, FP32: 1e-4}}
+
+# the kernel module each grad case's op launches
+GRAD_KERNEL = {"rmsnorm": "rmsnorm", "ssd": "ssd_scan",
+               "ssd_state": "ssd_scan", "gmm": "moe_gmm",
+               "flash": "flash_attention_fwd"}
+
+
+def rel_l2(got, want) -> float:
+    """||got - want|| / ||want|| in float64, on the card (the train check's
+    CPU tensors too: hundreds of millions of elements a comparison)."""
+    got, want = (t.to(device="cuda", dtype=torch.float64)
+                 for t in (got, want))
+    return ((got - want).norm() / want.norm().clamp_min(1e-30)).item()
+
+
+def _grad_case(op, shape, dt, gen):
+    """-> (the op as fn(*inputs), its plain version likewise, the
+    inputs (all differentiable), the output gradients, the forward's
+    operations, the one PyTorch call of the same function or None)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+    from repro_torch.kernels.moe_gmm import moe_gmm_plain
+    from repro_torch.kernels.ref import rmsnorm_ref, ssd_chunked_ref
+
+    def rnd(*s, scale=1.0, dtype=dt):
+        return (scale * torch.randn(*s, device="cuda", generator=gen)).to(
+            dtype).requires_grad_()
+    if op == "rmsnorm":
+        rows, d = shape
+        ins = [rnd(rows, d), (1.0 + 0.1 * torch.randn(
+            d, device="cuda", generator=gen)).to(dt).requires_grad_()]
+        return (lambda x, w: ops.rmsnorm(x, w),
+                lambda x, w: rmsnorm_ref(x, w), ins,
+                [torch.randn(rows, d, device="cuda", generator=gen).to(dt)],
+                4.0 * rows * d,
+                lambda x, w: F.rms_norm(x, (d,), w, eps=1e-6))
+    if op.startswith("ssd"):
+        bb, s, h, p, g, n, chunk = shape
+        state = op == "ssd_state"
+        ins = [rnd(bb, s, h, p),
+               F.softplus(torch.randn(bb, s, h, device="cuda",
+                                      generator=gen)).requires_grad_(),
+               (-torch.exp(0.5 * torch.randn(h, device="cuda", generator=gen))
+                ).requires_grad_(),
+               rnd(bb, s, g, n, scale=0.3), rnd(bb, s, g, n, scale=0.3)]
+        douts = [torch.randn(bb, s, h, p, device="cuda", generator=gen).to(dt)]
+        if state:
+            douts.append(torch.randn(bb, h, p, n, device="cuda",
+                                     generator=gen))
+
+        def plain(*t):
+            y, st = ssd_chunked_ref(*t, chunk=chunk)
+            return (y, st) if state else y
+        return (lambda *t: ops.ssd(*t, chunk=chunk, return_state=state),
+                plain, ins, douts, _ssd_flops(bb, s, h, p, n, chunk), None)
+    if op == "gmm":
+        e, rows, k, n, bt = shape
+        ids = torch.arange(e, dtype=torch.int32, device="cuda") \
+            .repeat_interleave(rows // bt)
+        t = e * rows
+        ins = [rnd(t, k), rnd(e, k, n, scale=k ** -0.5)]
+        return (lambda x, w: ops.moe_gmm(x, w, ids, block_t=bt),
+                lambda x, w: moe_gmm_plain(x, w, ids, bt), ins,
+                [torch.randn(t, n, device="cuda", generator=gen).to(dt)],
+                2.0 * t * k * n,
+                lambda x, w: torch.bmm(x.view(e, rows, k), w).view(t, n))
+    b, hq, hkv, s, d = shape
+    ins = [rnd(b, hq, s, d), rnd(b, hkv, s, d), rnd(b, hkv, s, d)]
+    return (lambda q, k, v: ops.flash_attention(q, k, v),
+            lambda q, k, v: flash_attention_plain(q, k, v)[0], ins,
+            [torch.randn(b, hq, s, d, device="cuda", generator=gen).to(dt)],
+            4.0 * d * _attn_live_pairs(s, s, None, True) * b * hq,
+            lambda q, k, v: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=True))
+
+
+def _fwd_bwd(fn, ins, douts):
+    out = fn(*ins)
+    outs = out if isinstance(out, tuple) else (out,)
+    return outs, torch.autograd.grad(outs, ins, douts[:len(outs)])
+
+
+def phase_grad():
+    """Every differentiable kernel op on the card: the output has a
+    grad_fn, and each input's gradient matches autograd through the plain
+    version on the same inputs; forward + backward timed with its bound
+    (bytes: every input, output gradient, output and input gradient once;
+    operations: the forward's and the backward's, which is twice the
+    forward's products for the SSD and the gmm and 2.5 times for flash)."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    card = card_line()
+    mods = _kernel_modules()
+    for m in mods.values():
+        m.launches = 0
+    records = {}
+    for name, op, shape, dt in GRAD_CASES:
+        fn, plain, ins, douts, flops, library = _grad_case(op, shape, dt, gen)
+        outs, grads = _fwd_bwd(fn, ins, douts)
+        check(all(o.grad_fn is not None for o in outs),
+              f"grad {name}: the output has a grad_fn on the card")
+        outs_p, grads_p = _fwd_bwd(plain, ins, douts)
+        kind = "ssd" if op.startswith("ssd") else op
+        tol = GRAD_TOL[kind][dt]
+        errs = [rel_l2(g, gp) for g, gp in zip(grads, grads_p)]
+        check(all(math.isfinite(e) for e in errs) and max(errs) <= tol,
+              f"grad {name}: gradients vs autograd through the plain "
+              f"version, relative L2 {errs} (tol {tol})")
+        fwd_err = max(rel_l2(o.float(), op_.float())
+                      for o, op_ in zip(outs, outs_p))
+        nbytes = sum(t.numel() * t.element_size()
+                     for t in (*ins, *douts, *outs, *grads))
+        # every expert of a gmm case owns rows: all its weights count
+        mult = 3.5 if op == "flash" else 3.0
+        rec = {"case": name, "card": card, "op": op, "shape": list(shape),
+               "dtype": str(dt), "grad_rel_l2": errs, "tol": tol,
+               "fwd_rel_l2": fwd_err, "max_abs_err": max(errs)}
+        rec["bound_ms"], rec["bound_by"] = bound_ms(mult * flops, nbytes, dt)
+        iters = 3 if op in ("ssd", "ssd_state", "flash") else 10
+        rec["ms"] = time_ms(lambda: _fwd_bwd(fn, ins, douts), iters,
+                            warmup=1)
+        # the plain version's check call above was its warm-up
+        rec["plain_ms"] = time_ms(lambda: _fwd_bwd(plain, ins, douts), 1,
+                                  warmup=0, repeats=1)
+        rec["library_ms"] = (time_ms(lambda: _fwd_bwd(library, ins, douts),
+                                     iters, warmup=1)
+                             if library else None)
+        records[name] = rec
+        log("grad", rec)
+        del fn, plain, ins, douts, outs, grads, outs_p, grads_p
+        torch.cuda.empty_cache()
+    launches = {n: m.launches for n, m in mods.items()}
+    log("grad", f"launches in the phase (checks and timing) {launches}")
+    return launches, records
+
+
+# ---------------------------------------------------------------------------
+# 8. train: TinyLlama-1.1B and Mamba2-780M at full width and depth
+# ---------------------------------------------------------------------------
+TRAIN_PATHS = (("tinyllama-1.1b", "train_tinyllama"),
+               ("mamba2-780m", "train_mamba2"))
+TRAIN_BATCH, TRAIN_SEQ = SERVE_BATCH, SERVE_PROMPT
+TRAIN_WARMUP, TRAIN_TIMED = 3, 10
+# the learning check: tests/test_substrate.py's schedule, one fixed batch;
+# the mean of the last 3 losses must sit this far under the first 3's
+# (the reference's own margin, there over means of 5 of 60 steps)
+LEARN_STEPS, LEARN_LR, LEARN_MARGIN = 20, dict(base_lr=5e-3, warmup=5,
+                                               total=120), 0.3
+# card vs CPU: 2 layers at full width, batch 2 x 256, float32
+CHECK_TRAIN_LAYERS, CHECK_TRAIN_BATCH, CHECK_TRAIN_SEQ = 2, 2, 256
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_GRAD_REL_L2 = 1e-4     # each gradient, and m and v (linear in it)
+# the card's parameters, m and v after one update against the CPU's AdamW
+# on the card's gradients: float32 elementwise arithmetic, sqrt and
+# division a rounding apart, the global norm summed in another order
+TRAIN_OPT_REL_L2 = 1e-6
+# bf16: each gradient's error against the float32 gradient of its own
+# device, the kernel path's against twice the plain path's (the CPU's)
+BF16_FACTOR, BF16_SLACK = 2.0, 1e-3
+HAND_KERNELS = ("fa_wgmma_kernel", "fa_fwd_kernel", "rmsnorm_reg_kernel",
+                "rmsnorm_loop_kernel", "chunk_state_kernel",
+                "state_pass_kernel", "chunk_scan_kernel", "ssd_kernel",
+                "gmm_wgmma_kernel", "gmm_mma_kernel", "gmm_fma_kernel")
+BACKWARD_NODES = {"flash_attention_bwd_plain": "_FlashAttentionBackward",
+                  "rmsnorm recompute": "_RMSNormBackward",
+                  "ssd recompute": "_SSDBackward"}
+
+
+def expected_train_launches(cfg) -> dict:
+    """Kernel launches of one train step (accum 1): the forward's alone.
+    The backward recomputes rmsnorm and the SSD through their plain
+    versions and flash's backward is torch ops, so it launches none."""
+    counts = {"flash_attention_fwd": 0, "rmsnorm": 2 * cfg.n_layers + 1,
+              "ssd_scan": 0, "moe_gmm": 0, "wavefront": 0}
+    if cfg.family == "ssm":
+        # three bf16 kernels a layer: the sequence holds more than a chunk
+        counts["ssd_scan"] = 3 * cfg.n_layers
+    else:
+        counts["flash_attention_fwd"] = cfg.n_layers
+    return counts
+
+
+def _model_flops(cfg, model) -> float:
+    """6 N a token, N the parameters in products (all but an untied input
+    embedding), plus attention's 12 L S^2 d a sequence (forward and
+    backward, no causal saving counted)."""
+    n = sum(p.numel() for p in model.parameters())
+    if not cfg.tie_embeddings and cfg.family != "ssm":
+        n -= model.embed.numel()
+    flops = 6.0 * n * TRAIN_BATCH * TRAIN_SEQ
+    if cfg.attn is not None:
+        flops += (12.0 * cfg.n_layers * TRAIN_SEQ ** 2
+                  * cfg.attn.n_heads * cfg.attn.head_dim * TRAIN_BATCH)
+    return flops
+
+
+def _train_region(name: str):
+    """The label of a CPU range the step's device time is split by: its
+    forward and optimiser spans, each kernel op's backward node."""
+    if name in ("train.forward", "train.optimizer"):
+        return name[6:]
+    return next((k for k, v in BACKWARD_NODES.items()
+                 if name.endswith("evaluate_function: " + v)), None)
+
+
+def _profile_step(step, state, batch):
+    """One step under torch.profiler: wall, device busy and idle share,
+    device ms of the forward, the optimiser and the rest (the backward),
+    of each kernel op's backward node, and by kernel class.  It reads the
+    profiler's raw events: its own event tree costs ~60 us an event to
+    build, about a minute for a Mamba2 step's."""
+    import bisect
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, _ = step(state, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    # a kernel's linked correlation id names the op that launched it (a
+    # CPU event with no link of its own, as the profiler's parse has it);
+    # the op's thread and start place it in a region of that thread
+    launcher, spans, kernels = {}, {}, []
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CPU:
+            if e.linked_correlation_id() == 0:
+                launcher[e.correlation_id()] = (e.start_thread_id(),
+                                                e.start_ns())
+            label = _train_region(e.name())
+            if label:
+                spans.setdefault(e.start_thread_id(), []).append(
+                    (e.start_ns(), e.end_ns(), label))
+        # the record_function spans' device-side copies would count their
+        # kernels twice
+        elif not e.name().startswith("train."):
+            kernels.append((e.name(), e.duration_ns() / 1e6,
+                            e.linked_correlation_id()))
+    for v in spans.values():
+        v.sort()
+    busy = sum(ms for _, ms, _ in kernels)
+    check(busy > 0, "train profile: the trace holds device time")
+    regions = {}
+    for _, ms, corr in kernels:
+        thread, t = launcher.get(corr, (None, 0))
+        ranges = spans.get(thread, [])
+        i = bisect.bisect_right(ranges, (t, float("inf"), "")) - 1
+        if i >= 0 and ranges[i][1] >= t:
+            regions[ranges[i][2]] = regions.get(ranges[i][2], 0.0) + ms
+    by_class, by_hand = {"hand kernels": 0.0, "cuBLAS products": 0.0,
+                         "other (elementwise, copies, reductions)": 0.0}, {}
+    for name, ms, _ in kernels:
+        hand = next((h for h in HAND_KERNELS if h in name), None)
+        if hand:
+            by_class["hand kernels"] += ms
+            by_hand[hand] = by_hand.get(hand, 0.0) + ms
+        elif any(t in name.lower() for t in ("gemm", "nvjet", "xmma",
+                                             "cutlass")):
+            by_class["cuBLAS products"] += ms
+        else:
+            by_class["other (elementwise, copies, reductions)"] += ms
+    top = {}
+    for name, ms, _ in kernels:
+        top[name[:90]] = top.get(name[:90], 0.0) + ms
+    fwd, opt = regions.get("forward", 0.0), regions.get("optimizer", 0.0)
+    return state, {
+        "wall_ms": wall_ms, "device_busy_ms": busy,
+        "device_idle_share": max(0.0, 1.0 - busy / wall_ms),
+        "forward_ms": fwd, "optimizer_ms": opt,
+        "backward_ms": busy - fwd - opt,
+        "backward_nodes_ms": {k: regions.get(k, 0.0)
+                              for k in BACKWARD_NODES},
+        "by_class_ms": by_class, "hand_kernels_ms": by_hand,
+        "top_kernels": sorted(top.items(), key=lambda kv: -kv[1])[:12]}
+
+
+def _train_run(cfg, ex, source, batch, **lr):
+    """A copy of the module ``source`` on ``ex.device``, one train step on
+    ``batch`` -> (loss, {name: gradient}, {name: parameter after the
+    update}, m, v)."""
+    from repro_torch.launch.steps import TrainState, make_train_step
+    from repro_torch.optim import adamw_init
+    model = type(source)(cfg, device="meta", dtype=ex.param_dtype)
+    model.to_empty(device=ex.device)
+    model.load_state_dict(source.state_dict())
+    state = TrainState(model=model,
+                       opt=adamw_init(dict(model.named_parameters())))
+    state, met = make_train_step(cfg, ex, **lr)(state, batch)
+    named = dict(state.model.named_parameters())
+    return (met["loss"].item(), {n: p.grad for n, p in named.items()},
+            {n: p.detach() for n, p in named.items()}, state.opt.m,
+            state.opt.v)
+
+
+def _train_check(arch):
+    """2 layers at full width: one step in float32 on the card (the
+    kernels) and on the CPU (the plain versions) from the same weights
+    and batch; then each device's bf16-compute gradients against its own
+    float32 ones."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.train import train_exec_config
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw_init, adamw_update, cosine_schedule
+
+    cfg = dataclasses.replace(get_config(arch), n_layers=CHECK_TRAIN_LAYERS)
+    fns = build_model(cfg)
+    shape = ShapeConfig("check", "train", CHECK_TRAIN_SEQ, CHECK_TRAIN_BATCH)
+    # one set of weights for both devices (their generators draw apart)
+    source = fns.init(SEED, train_exec_config(cfg, torch.device("cpu")))
+    weights = source.state_dict()
+    runs, secs = {}, {}
+    for dev in ("cuda", "cpu"):
+        ex16 = train_exec_config(cfg, torch.device(dev))
+        ex16 = dataclasses.replace(ex16, compute_dtype=BF16)
+        for dt in (FP32, BF16):
+            ex = dataclasses.replace(ex16, compute_dtype=dt)
+            batch = fns.make_batch(SEED + 7, shape, ex, kind="train")
+            t0 = time.perf_counter()
+            runs[dev, dt] = _train_run(cfg, ex, source, batch, **LEARN_LR)
+            secs[f"{dev}_{str(dt)[6:]}"] = time.perf_counter() - t0
+    card, cpu = runs["cuda", FP32], runs["cpu", FP32]
+    loss_err = abs(card[0] - cpu[0]) / abs(cpu[0])
+    # the card's update against the CPU's AdamW applied to the card's own
+    # gradients: the optimiser's arithmetic apart from the gradients'
+    # error (at the first step the update is lr g/(|g| + eps), which
+    # turns a small relative error of a gradient element near eps into a
+    # large one of its update: conv_b, zero at init, is all update)
+    w32 = {n: t.float() for n, t in weights.items()}
+    upd = adamw_update(w32, {n: g.cpu() for n, g in card[1].items()},
+                       adamw_init(w32), cosine_schedule(**LEARN_LR))
+    worst = {}
+    for what, got, want, tol in (
+            ("grad", card[1], cpu[1], TRAIN_GRAD_REL_L2),
+            ("m", card[3], cpu[3], TRAIN_GRAD_REL_L2),
+            ("v", card[4], cpu[4], TRAIN_GRAD_REL_L2),
+            ("param, card's gradients", card[2], upd[0], TRAIN_OPT_REL_L2),
+            ("m, card's gradients", card[3], upd[1].m, TRAIN_OPT_REL_L2),
+            ("v, card's gradients", card[4], upd[1].v, TRAIN_OPT_REL_L2),
+            ("param", card[2], cpu[2], None)):
+        errs = {n: rel_l2(got[n], t) for n, t in want.items()}
+        name = max(errs, key=errs.get)
+        worst[what] = {"param": name, "rel_l2": errs[name], "tol": tol}
+    log("train", {"model": cfg.name, "card": card_line(),
+                  "check": "card vs CPU, float32",
+                  "layers": CHECK_TRAIN_LAYERS, "batch": CHECK_TRAIN_BATCH,
+                  "seq": CHECK_TRAIN_SEQ, "loss_card": card[0],
+                  "loss_cpu": cpu[0], "loss_rel_err": loss_err,
+                  "loss_tol": TRAIN_LOSS_RTOL, "worst": worst,
+                  "seconds": secs})
+    # bf16: the kernel path's error against twice the plain path's
+    rows = []
+    for n, g32 in runs["cuda", FP32][1].items():
+        e_kernel = rel_l2(runs["cuda", BF16][1][n], g32)
+        e_plain = rel_l2(runs["cpu", BF16][1][n], runs["cpu", FP32][1][n])
+        limit = BF16_FACTOR * e_plain + BF16_SLACK
+        rows.append({"param": n, "e_kernel": e_kernel, "e_plain": e_plain,
+                     "limit": limit, "ratio": e_kernel / limit})
+    rows.sort(key=lambda r: -r["ratio"])
+    log("train", {"model": cfg.name, "card": card_line(),
+                  "check": "bf16 gradients, e_kernel <= "
+                  f"{BF16_FACTOR} e_plain + {BF16_SLACK}",
+                  "worst_five": rows[:5],
+                  "largest_e_kernel": max(r["e_kernel"] for r in rows),
+                  "largest_e_plain": max(r["e_plain"] for r in rows)})
+    check(loss_err <= TRAIN_LOSS_RTOL, f"train {cfg.name}: card loss vs CPU "
+          f"{loss_err} (tol {TRAIN_LOSS_RTOL})")
+    for what, w in worst.items():
+        check(w["tol"] is None or w["rel_l2"] <= w["tol"],
+              f"train {cfg.name}: card {what} vs CPU at {w['param']}: "
+              f"{w['rel_l2']} (tol {w['tol']})")
+    bad = [r for r in rows if not r["e_kernel"] <= r["limit"]]
+    check(not bad, f"train {cfg.name}: bf16 gradients past the derived "
+          f"tolerance: {bad}")
+
+
+def phase_train(arch: str):
+    """Train at full width and depth: 3 warm-up and 10 timed steps with
+    the launch counts of one, a profiled step, the learning check; then the
+    2-layer card-vs-CPU checks.  Returns the counted step's launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.steps import init_train_state, make_train_step
+    from repro_torch.launch.train import train_exec_config
+    from repro_torch.models import build_model
+
+    t_phase = time.perf_counter()
+    cfg = get_config(arch)
+    ex = train_exec_config(cfg, torch.device("cuda"))
+    fns = build_model(cfg)
+    shape = ShapeConfig("train", "train", TRAIN_SEQ, TRAIN_BATCH)
+    batches = [fns.make_batch(SEED + i, shape, ex, kind="train")
+               for i in range(TRAIN_WARMUP + TRAIN_TIMED)]
+    state = init_train_state(cfg, ex, SEED)
+    step = make_train_step(cfg, ex)
+    n_params = sum(p.numel() for p in state.model.parameters())
+    log("train", f"{cfg.name}: {cfg.n_layers} layers (full depth), "
+        f"d_model {cfg.d_model}, {n_params / 1e9:.3f} B params, float32 "
+        f"master weights, bf16 compute, batch {TRAIN_BATCH} x {TRAIN_SEQ}")
+    metrics = []
+    for b in batches[:TRAIN_WARMUP]:
+        state, m = step(state, b)
+        metrics.append(m)
+    mods = _kernel_modules()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for i, b in enumerate(batches[TRAIN_WARMUP:]):
+        if i == 0:
+            for mod in mods.values():
+                mod.launches = 0
+        state, m = step(state, b)
+        if i == 0:
+            launches = {n: mod.launches for n, mod in mods.items()}
+        metrics.append(m)
+    end.record()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / TRAIN_TIMED
+    step_ms = start.elapsed_time(end) / TRAIN_TIMED
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = [m["loss"].item() for m in metrics]
+    norms = [m["grad_norm"].item() for m in metrics]
+    expected = expected_train_launches(cfg)
+    log("train", f"{cfg.name} one step's launches {launches}; expected "
+        f"{expected}")
+    check(launches == expected, f"train {cfg.name}: every kernel of the "
+          f"forward launched as often as the model calls it")
+    check(all(math.isfinite(v) for v in losses + norms),
+          f"train {cfg.name}: finite losses and grad norms")
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    flops = _model_flops(cfg, state.model)
+    state, prof = _profile_step(step, state, batches[-1])
+    # the profiler slows the host: the idle share of the timed steps
+    prof["device_idle_share_timed"] = max(
+        0.0, 1.0 - prof["device_busy_ms"] / step_ms)
+    log("train", {"model": cfg.name, "card": card_line(),
+                  "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+                  "step_ms": step_ms, "host_wall_ms_per_step": wall_ms,
+                  "tokens_per_s": tokens / step_ms * 1e3,
+                  "model_flops_per_step": flops,
+                  "model_flops_per_s": flops / step_ms * 1e3,
+                  "share_of_989_tflops": flops / step_ms * 1e3 / 989e12,
+                  "peak_mem_gb": peak_gb, "params_b": n_params / 1e9,
+                  "losses": losses, "grad_norms": norms, "profile": prof})
+    del state, step, metrics, batches
+    torch.cuda.empty_cache()
+
+    # the learning check: one fixed batch, the substrate test's schedule
+    state = init_train_state(cfg, ex, SEED)
+    step = make_train_step(cfg, ex, **LEARN_LR)
+    batch = fns.make_batch(SEED, shape, ex, kind="train")
+    metrics = []
+    for _ in range(LEARN_STEPS):
+        state, m = step(state, batch)
+        metrics.append(m)
+    losses = [m["loss"].item() for m in metrics]
+    norms = [m["grad_norm"].item() for m in metrics]
+    first, last = sum(losses[:3]) / 3, sum(losses[-3:]) / 3
+    log("train", {"model": cfg.name, "card": card_line(),
+                  "check": "learns a fixed batch", **LEARN_LR,
+                  "losses": losses, "grad_norms": norms,
+                  "mean_first_3": first, "mean_last_3": last,
+                  "margin": LEARN_MARGIN})
+    check(all(math.isfinite(v) for v in losses + norms),
+          f"train {cfg.name}: finite losses and grad norms on a fixed batch")
+    check(last < first - LEARN_MARGIN, f"train {cfg.name}: the loss fell "
+          f"by more than {LEARN_MARGIN} ({first} -> {last})")
+    del state, step, metrics
+    torch.cuda.empty_cache()
+    _train_check(arch)
+    log("train", f"{cfg.name}: phase wall {time.perf_counter() - t_phase:.1f}"
+        " s")
+    return launches
+
+
 # the serving paths: arch, serve depth (None: the config's), serve
 # prompt, depth of the card-vs-CPU check, its prompt
 PATHS = (
@@ -1477,6 +2011,12 @@ def main() -> int:
     by_path["study"] = phase_study()
     phase_scan()
     by_path["calibrate"] = phase_calibrate()
+    t_new = time.perf_counter()
+    by_path["grad"], grad_records = phase_grad()
+    for arch, label in TRAIN_PATHS:
+        by_path[label] = phase_train(arch)
+    log("done", f"grad and train phases in "
+        f"{time.perf_counter() - t_new:.1f} s")
 
     kernels = []
     for name, rec in records.items():
@@ -1491,6 +2031,13 @@ def main() -> int:
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
             "shape": rec["shape"], "dtype": rec["dtype"],
             **({"note": NOT_PALLAS[name]} if name in NOT_PALLAS else {}),
+            # forward + backward through ops (the grad phase)
+            "fwd_bwd": [{k: r[k] for k in ("case", "shape", "dtype", "ms",
+                                           "plain_ms", "bound_ms",
+                                           "bound_by", "library_ms",
+                                           "grad_rel_l2")}
+                        for r in grad_records.values()
+                        if GRAD_KERNEL[r["op"]] == name],
             "other_shapes": [
                 {k: r[k] for k in ("case", "shape", "dtype", "ms", "plain_ms",
                                    "bound_ms", "bound_by", "library_ms",

@@ -86,3 +86,15 @@ def params_from_jax(tree: dict, cfg: ModelConfig) -> dict:
     if not cfg.tie_embeddings:
         sd["lm_head.weight"] = _linear(tree["lm_head"])
     return sd
+
+
+def train_state_from_jax(state, cfg: ModelConfig):
+    """The reference's ``TrainState`` (params, opt = AdamWState(step, m,
+    v)) -> (the port's model state dict, its ``AdamWState``).  Gradients
+    and moments share the parameters' tree, so ``params_from_jax`` maps
+    each (gradients too, in the tests)."""
+    from repro_torch.optim import AdamWState
+    return params_from_jax(state.params, cfg), AdamWState(
+        step=int(np.asarray(state.opt.step)),
+        m=params_from_jax(state.opt.m, cfg),
+        v=params_from_jax(state.opt.v, cfg))

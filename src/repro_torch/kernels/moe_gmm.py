@@ -19,6 +19,7 @@ import functools
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.ref import wide
 
 DTYPES = (torch.float32, torch.bfloat16)
 BLOCK_TS = (128, 64, 32, 16, 8)   # the kernels' row tiles, largest first
@@ -30,13 +31,17 @@ launches = 0
 
 
 def moe_gmm_plain(x, w, block_group_ids, block_t: int):
-    """One float32 matmul per row block, with the expert its id names."""
-    t, n = x.shape[0], w.shape[-1]
-    wf = w.float()
+    """One float32 matmul per row block, with the expert its id names.  An
+    id outside [0, E) names an expert of NaN weights: its rows are NaN, as
+    the kernel's, and so is their gradient in x."""
+    (t, k), (e_n, _, n) = x.shape, w.shape
+    wf = wide(w)
+    nan_w = torch.full((k, n), float("nan"), dtype=wf.dtype, device=w.device)
     out = torch.empty((t, n), dtype=x.dtype, device=x.device)
     for i, e in enumerate(block_group_ids.tolist()):
         rows = slice(i * block_t, (i + 1) * block_t)
-        out[rows] = (x[rows].float() @ wf[e]).to(x.dtype)
+        out[rows] = (wide(x[rows]) @ (wf[e] if 0 <= e < e_n else nan_w)
+                     ).to(x.dtype)
     return out
 
 

@@ -3,9 +3,12 @@
 Each op dispatches on the device of its tensors: CPU tensors go to the
 plain PyTorch version, CUDA tensors launch the hand-written kernel, which
 raises on what it does not take.  Nothing routes a CUDA tensor to a
-plain version.  ``flash_attention`` is differentiable: its forward (the
-kernel or plain version) saves o and lse and its backward is torch ops
-(the reference's custom VJP); the other ops are forward only.
+plain version.  Every op but ``decode_attention`` (torch ops throughout)
+is a ``torch.autograd.Function`` whose forward is that dispatch and
+whose backward is the reference's, the same code on both devices:
+flash's from the saved o and lse; rmsnorm's and the SSD's recompute
+through their plain versions and take its autograd; the gmm's dx is the
+gmm itself (the kernel on the card) over the transposed experts.
 """
 from __future__ import annotations
 
@@ -20,7 +23,7 @@ from repro_torch.kernels.flash_attention import \
 from repro_torch.kernels.moe_gmm import check_args as _gmm_check
 from repro_torch.kernels.moe_gmm import moe_gmm as _gmm_cuda
 from repro_torch.kernels.moe_gmm import moe_gmm_plain as _gmm_plain
-from repro_torch.kernels.ref import NEG_INF
+from repro_torch.kernels.ref import NEG_INF, wide
 from repro_torch.kernels.rmsnorm import rmsnorm as _rmsnorm_cuda
 from repro_torch.kernels.rmsnorm import rmsnorm_plain as _rmsnorm_plain
 from repro_torch.kernels.ssd_scan import ssd_plain as _ssd_plain
@@ -110,25 +113,133 @@ def decode_attention(q, k_cache, v_cache, pos, *, window=None, softcap=0.0,
     return o.reshape(b, hq, 1, d).to(q.dtype)
 
 
+def _plain_grads(f, inputs, needs, grad_outputs):
+    """The gradients of ``f(*inputs)`` in the ``inputs`` that ``needs``
+    marks (None for the others), by autograd through ``f`` (a plain
+    version) recomputed here: the reference's VJP of a forward-only
+    kernel."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(need)
+                  for t, need in zip(inputs, needs)]
+        outs = f(*leaves)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        pairs = [(o, g) for o, g in zip(outs, grad_outputs) if g is not None]
+        diff = [t for t in leaves if t.requires_grad]
+        grads = iter(torch.autograd.grad([o for o, _ in pairs], diff,
+                                         [g for _, g in pairs],
+                                         allow_unused=True))
+    return [next(grads) if t.requires_grad else None for t in leaves]
+
+
+class _RMSNorm(torch.autograd.Function):
+    """rmsnorm with the reference's ``_rn`` VJP: the backward recomputes
+    through ``rmsnorm_plain`` from the saved x and w (not the output)."""
+
+    @staticmethod
+    def forward(ctx, x, w, eps, weight_offset):
+        ctx.save_for_backward(x, w)
+        ctx.cfg = (eps, weight_offset)
+        if _is_cuda(x, w):
+            return _rmsnorm_cuda(x, w, eps=eps, weight_offset=weight_offset)
+        return _rmsnorm_plain(x, w, eps=eps, weight_offset=weight_offset)
+
+    @staticmethod
+    def backward(ctx, dy):
+        eps, off = ctx.cfg
+        dx, dw = _plain_grads(
+            lambda x, w: _rmsnorm_plain(x, w, eps=eps, weight_offset=off),
+            ctx.saved_tensors, ctx.needs_input_grad[:2], (dy,))
+        return dx, dw, None, None
+
+
 def rmsnorm(x, w, *, eps=1e-6, weight_offset=0.0):
-    if _is_cuda(x, w):
-        return _rmsnorm_cuda(x, w, eps=eps, weight_offset=weight_offset)
-    return _rmsnorm_plain(x, w, eps=eps, weight_offset=weight_offset)
+    """RMSNorm over the last dim with float32 statistics, in x's dtype.
+    x: (..., D); w: (D,).  Differentiable in x and w."""
+    return _RMSNorm.apply(x, w, eps, weight_offset)
+
+
+class _SSD(torch.autograd.Function):
+    """The SSD with the reference's ``_ssd`` VJP: the backward recomputes
+    the chunked plain formulation from the saved inputs and takes its
+    autograd.  With ``return_state`` the state's gradient flows too
+    (autograd through the plain version's final state)."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, B, C, chunk, return_state):
+        ctx.save_for_backward(x, dt, A, B, C)
+        ctx.cfg = (chunk, return_state)
+        ctx.set_materialize_grads(False)
+        if _is_cuda(x, dt, A, B, C):
+            x, dt, A, B, C = (t.contiguous() for t in (x, dt, A, B, C))
+            return _ssd_cuda(x, dt, A, B, C, chunk=chunk,
+                             return_state=return_state)
+        return _ssd_plain(x, dt, A, B, C, chunk=chunk,
+                          return_state=return_state)
+
+    @staticmethod
+    def backward(ctx, dy, dstate=None):
+        chunk, return_state = ctx.cfg
+        grads = _plain_grads(
+            lambda *t: _ssd_plain(*t, chunk=chunk, return_state=return_state),
+            ctx.saved_tensors, ctx.needs_input_grad[:5], (dy, dstate))
+        return (*grads, None, None)
 
 
 def ssd(x, dt, A, B, C, *, chunk=128, return_state=False):
     """Mamba2 SSD operator.  x: (Bb,S,H,P); dt: (Bb,S,H); A: (H,); B, C:
     (Bb,S,G,N) -> y (Bb,S,H,P) in x's dtype, or with ``return_state``
     (y, the final state (Bb,H,P,N) in float32).  The caller applies the
-    D-skip.  ``chunk`` is cut to S, and S must be a multiple of it."""
+    D-skip.  ``chunk`` is cut to S, and S must be a multiple of it.
+    Differentiable in x, dt, A, B and C, through y and the state."""
     s = x.shape[1]
     chunk = min(int(chunk), s)
     if chunk < 1 or s % chunk:
         raise ValueError(f"S={s} is not a multiple of chunk={chunk}")
-    if _is_cuda(x, dt, A, B, C):
-        return _ssd_cuda(x, dt, A, B, C, chunk=chunk,
-                         return_state=return_state)
-    return _ssd_plain(x, dt, A, B, C, chunk=chunk, return_state=return_state)
+    return _SSD.apply(x, dt, A, B, C, chunk, return_state)
+
+
+def _gmm_forward(x, w, block_group_ids, block_t):
+    if _is_cuda(x, w, block_group_ids):
+        return _gmm_cuda(x, w, block_group_ids, block_t=block_t)
+    return _gmm_plain(x, w, block_group_ids, block_t)
+
+
+class _MoEGMM(torch.autograd.Function):
+    """The grouped matmul with the gradient of its einsum form (the
+    reference's MoE differentiates ``models/moe.py``'s einsums): dx is
+    the gmm of dy over the experts' transposed weights (the kernel on
+    the card: K and N are both multiples of 8), dw each expert's sum of
+    x_block^T dy_block over its blocks, in float32; a block whose id is
+    outside [0, E) adds to no expert."""
+
+    @staticmethod
+    def forward(ctx, x, w, block_group_ids, block_t):
+        ctx.save_for_backward(x, w, block_group_ids)
+        ctx.block_t = block_t
+        return _gmm_forward(x, w, block_group_ids, block_t)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w, ids = ctx.saved_tensors
+        bt = ctx.block_t
+        dy = dy.contiguous()
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = _gmm_forward(dy, w.transpose(1, 2).contiguous(), ids, bt)
+        if ctx.needs_input_grad[1]:
+            (e_n, k, n), acc = w.shape, wide(w).dtype
+            dw = torch.zeros((e_n, k, n), dtype=acc, device=w.device)
+            xb, dyb = x.view(-1, bt, k), dy.view(-1, bt, n)
+            blocks = {}
+            for i, e in enumerate(ids.tolist()):
+                if 0 <= e < e_n:
+                    blocks.setdefault(e, []).append(i)
+            for e, idx in blocks.items():
+                sel = torch.tensor(idx, device=x.device)
+                dw[e] = (wide(xb[sel]).reshape(-1, k).T
+                         @ wide(dyb[sel]).reshape(-1, n))
+            dw = dw.to(w.dtype)
+        return dx, dw, None, None
 
 
 def moe_gmm(x, w, block_group_ids, *, block_t):
@@ -136,8 +247,8 @@ def moe_gmm(x, w, block_group_ids, *, block_t):
     w: (E, K, N); block_group_ids: (T / block_t,) int32, the expert of each
     block of ``block_t`` rows -> (T, N) in x's dtype, summed in float32.
     The kernel's block-id layout is the one contract (the group-sizes form
-    is a test oracle, ``ref.moe_gmm_ref``)."""
-    if _is_cuda(x, w, block_group_ids):
-        return _gmm_cuda(x, w, block_group_ids, block_t=block_t)
-    _gmm_check(x, w, block_group_ids, block_t)
-    return _gmm_plain(x, w, block_group_ids, block_t)
+    is a test oracle, ``ref.moe_gmm_ref``).  Ids outside [0, E) give NaN
+    rows.  Differentiable in x and w."""
+    if not _is_cuda(x, w, block_group_ids):
+        _gmm_check(x, w, block_group_ids, block_t)
+    return _MoEGMM.apply(x, w, block_group_ids, block_t)

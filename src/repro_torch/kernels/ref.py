@@ -8,6 +8,12 @@ import torch
 NEG_INF = -1e30
 
 
+def wide(t: torch.Tensor) -> torch.Tensor:
+    """``t`` in float32, or in float64 where it already is: the oracles
+    compute in float32, and in float64 for ``torch.autograd.gradcheck``."""
+    return t if t.dtype == torch.float64 else t.float()
+
+
 def attention_ref(q, k, v, *, causal=True, window=None, softcap=0.0,
                   scale=None):
     """Dense reference attention.
@@ -40,9 +46,9 @@ def attention_ref(q, k, v, *, causal=True, window=None, softcap=0.0,
 
 
 def rmsnorm_ref(x, w, *, eps=1e-6, weight_offset=0.0):
-    xf = x.float()
+    xf = wide(x)
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
-    y = xf * torch.rsqrt(var + eps) * (weight_offset + w.float())
+    y = xf * torch.rsqrt(var + eps) * (weight_offset + wide(w))
     return y.to(x.dtype)
 
 
@@ -81,22 +87,23 @@ def ssd_ref(x, dt, A, B, C, D=None, *, initial_state=None):
 
 def ssd_chunked_ref(x, dt, A, B, C, D=None, *, chunk=64, initial_state=None):
     """Chunked (matrix-form) SSD: the same function as ``ssd_ref``, the
-    algorithm the kernel implements, in float32.  S % chunk == 0."""
+    algorithm the kernel implements, in float32 (float64 inputs stay in
+    float64).  S % chunk == 0."""
     bb, s, h, p = x.shape
     g, n = B.shape[2], B.shape[3]
     rep = h // g
     if s % chunk:
         raise ValueError(f"S={s} is not a multiple of chunk={chunk}")
     nc = s // chunk
-    a = A.float()
-    xc = x.float().reshape(bb, nc, chunk, h, p)
-    dtc = dt.float().reshape(bb, nc, chunk, h)
-    bc = B.float().repeat_interleave(rep, dim=2).reshape(bb, nc, chunk, h, n)
-    cc = C.float().repeat_interleave(rep, dim=2).reshape(bb, nc, chunk, h, n)
+    a = wide(A)
+    xc = wide(x).reshape(bb, nc, chunk, h, p)
+    dtc = wide(dt).reshape(bb, nc, chunk, h)
+    bc = wide(B).repeat_interleave(rep, dim=2).reshape(bb, nc, chunk, h, n)
+    cc = wide(C).repeat_interleave(rep, dim=2).reshape(bb, nc, chunk, h, n)
     causal = torch.ones((chunk, chunk), dtype=torch.bool,
                         device=x.device).tril()
-    state = (torch.zeros((bb, h, p, n), dtype=torch.float32, device=x.device)
-             if initial_state is None else initial_state.float())
+    state = (torch.zeros((bb, h, p, n), dtype=xc.dtype, device=x.device)
+             if initial_state is None else wide(initial_state))
     ys = []
     for ci in range(nc):
         xq, dtq, bq, cq = xc[:, ci], dtc[:, ci], bc[:, ci], cc[:, ci]
@@ -119,7 +126,7 @@ def ssd_chunked_ref(x, dt, A, B, C, D=None, *, chunk=64, initial_state=None):
         ys.append(y_intra + y_inter)
     y = torch.stack(ys, dim=1).reshape(bb, s, h, p)
     if D is not None:
-        y = y + x.float() * D.float()[None, None, :, None]
+        y = y + wide(x) * wide(D)[None, None, :, None]
     return y.to(x.dtype), state
 
 

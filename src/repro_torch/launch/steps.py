@@ -1,6 +1,9 @@
-"""Prefill and serve step builders (counterpart of
-``repro/launch/steps.py``; training is a later slice)."""
+"""Train, prefill and serve steps (counterpart of
+``repro/launch/steps.py``; training on one device, for the families whose
+loss is ported)."""
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 from torch.func import functional_call
@@ -8,6 +11,8 @@ from torch.func import functional_call
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import build_model
 from repro_torch.models.common import ExecConfig
+from repro_torch.optim import (AdamWState, adamw_init, adamw_update,
+                               cosine_schedule)
 
 
 class _Bound(torch.nn.Module):
@@ -35,6 +40,81 @@ def _call_cast(fn, model: torch.nn.Module, ex: ExecConfig, *args):
     cast = {f"model.{n}": p.to(ex.compute_dtype) if p.is_floating_point()
             else p for n, p in params.items()}
     return functional_call(_Bound(model, fn), cast, args)
+
+
+class TrainState(NamedTuple):
+    model: torch.nn.Module   # the parameters, in param_dtype
+    opt: AdamWState
+
+
+def init_train_state(cfg: ModelConfig, ex: ExecConfig, seed: int = 0
+                     ) -> TrainState:
+    model = build_model(cfg).init(seed, ex)
+    return TrainState(model=model,
+                      opt=adamw_init(dict(model.named_parameters())))
+
+
+def _microbatches(batch: dict, accum: int):
+    b = next(iter(batch.values())).shape[0]
+    if b % accum:
+        raise ValueError(f"batch {b} is not a multiple of accum={accum}")
+    return [{k: v[i * (b // accum):(i + 1) * (b // accum)]
+             for k, v in batch.items()} for i in range(accum)]
+
+
+def make_train_step(cfg: ModelConfig, ex: ExecConfig, *, base_lr=3e-4,
+                    warmup=100, total=10000, accum: int = 1):
+    """train_step(state, batch) -> (state, metrics): the loss in
+    ``ex.compute_dtype`` through ``_call_cast`` (the parameters stay in
+    ``param_dtype``, float32 master weights, and take the gradients
+    through the cast), backward, then one AdamW update of the parameters
+    in place.  ``accum`` > 1 splits the batch's leading dim into
+    microbatches run in turn; their gradients sum in each parameter's
+    ``.grad`` (float32 with float32 master weights, as the reference's
+    float32 sum) and are divided by ``accum``.  Each parameter's
+    ``.grad`` keeps the step's summed gradient until the next step.
+    metrics: loss, ce, aux, lr, grad_norm (tensors where computed on the
+    device, so that a step does not wait for them)."""
+    model_fns = build_model(cfg)
+    lr_fn = cosine_schedule(base_lr, warmup, total)
+    record = torch.profiler.record_function
+
+    def loss_fn(model, batch):
+        return _call_cast(model_fns.loss, model, ex, batch, ex)
+
+    def train_step(state: TrainState, batch):
+        params = dict(state.model.named_parameters())
+        for p in params.values():
+            p.grad = None
+        if accum == 1:
+            with record("train.forward"):
+                loss, metrics = loss_fn(state.model, batch)
+            with record("train.backward"):
+                loss.backward()
+        else:
+            loss = 0.0
+            for mb in _microbatches(batch, accum):
+                with record("train.forward"):
+                    mloss, _ = loss_fn(state.model, mb)
+                with record("train.backward"):
+                    mloss.backward()
+                loss = loss + mloss.detach()
+            loss = loss / accum
+            metrics = {"ce": loss, "aux": 0.0}
+        missing = [n for n, p in params.items() if p.grad is None]
+        if missing:
+            raise RuntimeError(f"no gradient reached {missing}")
+        with record("train.optimizer"), torch.no_grad():
+            grads = {n: p.grad if accum == 1 else p.grad / accum
+                     for n, p in params.items()}
+            new, opt, om = adamw_update(params, grads, state.opt, lr_fn)
+            for n, p in params.items():
+                p.copy_(new[n])
+        metrics = {k: v.detach() if torch.is_tensor(v) else v
+                   for k, v in dict(metrics, loss=loss, **om).items()}
+        return TrainState(model=state.model, opt=opt), metrics
+
+    return train_step
 
 
 def make_prefill_step(cfg: ModelConfig, ex: ExecConfig):

@@ -6,7 +6,9 @@ encdec).
   prefill(model, batch, ex, cache=None) -> (logits, cache)
   decode_step(model, cache, tokens, pos, ex) -> (logits, cache)
   init_cache(batch, seq_len, ex) -> cache
-  make_batch(seed, shape, ex) -> synthetic prefill batch
+  make_batch(seed, shape, ex, kind="prefill") -> synthetic batch ("train"
+      adds labels)
+  loss(model, batch, ex) -> (loss, {"ce", "aux"}) for dense and ssm
 """
 from __future__ import annotations
 
@@ -29,6 +31,10 @@ _FAMILIES = {
     "encdec": (encdec.encdec_init, encdec.init_cache),
 }
 PORTED_FAMILIES = tuple(_FAMILIES)
+# family -> loss(model, batch, cfg, ex); the others' losses are later
+# slices of training: moe needs the router's aux loss, vlm the loss mask
+# over its prefix, hybrid and encdec their own loss functions
+_LOSSES = {"dense": transformer.lm_loss, "ssm": ssm_lm.ssm_lm_loss}
 
 
 @dataclass(frozen=True)
@@ -39,6 +45,7 @@ class ModelFns:
     decode_step: Callable
     init_cache: Callable
     make_batch: Callable
+    loss: Callable
 
 
 def build_model(cfg: ModelConfig) -> ModelFns:
@@ -64,30 +71,41 @@ def build_model(cfg: ModelConfig) -> ModelFns:
         return family_cache(cfg, batch, seq_len, ex.compute_dtype,
                             check_device(ex.device))
 
-    def make_batch(seed, shape: ShapeConfig, ex):
-        # drawn on the CPU so every device gets the same prompt; a vlm
+    def loss(model, batch, ex):
+        if cfg.family not in _LOSSES:
+            raise NotImplementedError(
+                f"the {cfg.family} family's loss ({cfg.name}) is a later "
+                f"slice of training; ported: {tuple(_LOSSES)}")
+        return _LOSSES[cfg.family](model, batch, cfg, ex)
+
+    def make_batch(seed, shape: ShapeConfig, ex, kind="prefill"):
+        # drawn on the CPU so every device gets the same batch; a vlm
         # config's prefix embeddings (standing in for the vision tower) and
         # an encdec config's encoder frames (standing in for the audio
         # frontend) are standard normals from the same generator, in
-        # compute dtype
+        # compute dtype; "train" labels are drawn last, so the other
+        # tensors do not depend on the kind
+        if kind not in ("prefill", "train"):
+            raise ValueError(f"kind must be 'prefill' or 'train', got "
+                             f"{kind!r}")
         device = check_device(ex.device)
         gen = torch.Generator().manual_seed(seed)
-        tokens = torch.randint(0, cfg.vocab,
-                               (shape.global_batch, shape.seq_len),
-                               generator=gen)
+        b, s = shape.global_batch, shape.seq_len
+        tokens = torch.randint(0, cfg.vocab, (b, s), generator=gen)
         batch = {"tokens": tokens.to(device)}
         if cfg.family == "vlm":
-            prefix = torch.randn(
-                (shape.global_batch, cfg.n_prefix_tokens, cfg.d_model),
-                generator=gen)
+            prefix = torch.randn((b, cfg.n_prefix_tokens, cfg.d_model),
+                                 generator=gen)
             batch["prefix_embeds"] = prefix.to(ex.compute_dtype).to(device)
         if cfg.family == "encdec":
-            frames = torch.randn(
-                (shape.global_batch, cfg.encoder_len, cfg.d_model),
-                generator=gen)
+            frames = torch.randn((b, cfg.encoder_len, cfg.d_model),
+                                 generator=gen)
             batch["encoder_embeds"] = frames.to(ex.compute_dtype).to(device)
+        if kind == "train":
+            labels = torch.randint(0, cfg.vocab, (b, s), generator=gen)
+            batch["labels"] = labels.to(device)
         return batch
 
     return ModelFns(cfg=cfg, init=init, prefill=prefill,
                     decode_step=decode_step, init_cache=init_cache,
-                    make_batch=make_batch)
+                    make_batch=make_batch, loss=loss)

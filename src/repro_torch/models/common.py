@@ -89,3 +89,20 @@ def mlp_apply(mlp: MLP, x, gated: bool):
     else:
         h = F.gelu(mlp.w1(x), approximate="tanh")
     return mlp.w2(h)
+
+
+def cross_entropy(logits, labels, *, logit_softcap=0.0, mask=None):
+    """Mean next-token loss in float32.  logits: (B, S, V); labels: (B, S)
+    int; mask: None or (B, S), the positions that count.  The reference
+    picks the gold logit with a masked reduction (for vocab-sharded
+    logits); a gather is the same sum on one device."""
+    logits = logits.float()
+    if logit_softcap:
+        logits = logit_softcap * torch.tanh(logits / logit_softcap)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    nll = lse - gold
+    if mask is None:
+        return nll.mean()
+    mask = mask.float()
+    return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)

@@ -26,6 +26,17 @@ class SSMLM(torch.nn.Module):
             ssm.Layer(cfg, **kw) for _ in range(cfg.n_layers))
         self.final_norm = torch.nn.Parameter(torch.empty(cfg.d_model, **kw))
 
+    def hidden(self, tokens, ex):
+        """The full-sequence forward without a state (the reference's
+        ``ssm_lm_hidden``): tokens (B, S) -> final-normed hidden (B, S,
+        D)."""
+        cfg = self.cfg
+        x = self.embed[tokens].to(ex.compute_dtype)
+        for lyr in self.layers:
+            h = common.norm(x, lyr.ln, cfg.norm_eps)
+            x = x + ssm.ssm_train(lyr.ssm, h, cfg, ex)
+        return common.norm(x, self.final_norm, cfg.norm_eps)
+
     @torch.no_grad()
     def prefill(self, tokens, ex, cache=None):
         """tokens: (B, S) -> (last-position logits (B, V), cache).
@@ -61,6 +72,16 @@ class SSMLM(torch.nn.Module):
                                    cache["ssm"][i], cfg)
         x = common.norm(x, self.final_norm, cfg.norm_eps)
         return x[:, 0] @ self.embed.T, cache
+
+
+def ssm_lm_loss(model: SSMLM, batch, cfg: ModelConfig, ex):
+    """-> (loss, {"ce", "aux"}): the mean cross-entropy of the tied head's
+    logits against ``batch["labels"]``; no aux loss."""
+    del cfg
+    x = model.hidden(batch["tokens"], ex)
+    ce = common.cross_entropy(x @ model.embed.T, batch["labels"],
+                              mask=batch.get("loss_mask"))
+    return ce, {"ce": ce, "aux": 0.0}
 
 
 def ssm_lm_init(cfg: ModelConfig, ex: common.ExecConfig, seed: int = 0

@@ -57,6 +57,50 @@ class Transformer(torch.nn.Module):
         p = self.cfg.attn.local_global_period
         return p == 0 or i % p == p - 1
 
+    def _embed(self, tokens, ex, prefix_embeds):
+        """(B, S) tokens -> (B, S, D) in the compute dtype, the first P
+        positions taken by ``prefix_embeds`` (B, P, D) where given (the
+        reference's ``_embed``: the tokens there are ignored)."""
+        cfg = self.cfg
+        b, s = tokens.shape
+        x = self.embed[tokens].to(ex.compute_dtype)
+        if prefix_embeds is None:
+            return x
+        shape = tuple(prefix_embeds.shape)
+        if (len(shape) != 3 or shape[0] != b or shape[1] > s
+                or shape[2] != cfg.d_model):
+            raise ValueError(f"prefix_embeds {shape} must be (B={b}, "
+                             f"P<={s}, D={cfg.d_model})")
+        return torch.cat([prefix_embeds.to(ex.compute_dtype),
+                          x[:, shape[1]:]], dim=1)
+
+    def _layers(self, x, ex):
+        """Every layer over the full sequence x (B, S, D), as a generator
+        of (layer index, x after it, its (k, v) (B, Hkv, S, hd))."""
+        cfg, a = self.cfg, self.cfg.attn
+        rope = common.rope_angles(torch.arange(x.shape[1], device=x.device),
+                                  a.head_dim, a.rope_theta)
+        for i, blk in enumerate(self.layers):
+            h = common.norm(x, blk.ln1, cfg.norm_eps)
+            att, kv = attention.attn_train(
+                blk.attn, h, a, window=attention.layer_window(
+                    a, self.is_global(i)),
+                norm_eps=cfg.norm_eps, rope=rope, ex=ex)
+            x = x + att
+            h = common.norm(x, blk.ln2, cfg.norm_eps)
+            x = x + blk.ffn(h, cfg)
+            yield i, x, kv
+
+    def hidden(self, tokens, ex, prefix_embeds=None):
+        """The full-sequence forward without a cache (the reference's
+        ``lm_hidden``): tokens (B, S) -> (final-normed hidden (B, S, D),
+        aux loss).  The aux loss is 0.0: the MoE router's is not ported
+        (``api.build_model(...).loss`` raises for MoE)."""
+        x = self._embed(tokens, ex, prefix_embeds)
+        for _, x, _ in self._layers(x, ex):
+            pass
+        return common.norm(x, self.final_norm, self.cfg.norm_eps), 0.0
+
     @torch.no_grad()
     def prefill(self, tokens, ex, cache=None, prefix_embeds=None):
         """tokens: (B, S) -> (last-position logits (B, V), cache).
@@ -69,31 +113,13 @@ class Transformer(torch.nn.Module):
         first P positions in the compute dtype; the tokens there are
         ignored (the reference's ``_embed``).
         """
-        cfg, a = self.cfg, self.cfg.attn
+        cfg = self.cfg
         b, s = tokens.shape
         if cache is None:
             cache = init_cache(cfg, b, s, ex.compute_dtype, tokens.device)
         clen = cache_len(cfg, s)
-        x = self.embed[tokens].to(ex.compute_dtype)
-        if prefix_embeds is not None:
-            shape = tuple(prefix_embeds.shape)
-            if (len(shape) != 3 or shape[0] != b or shape[1] > s
-                    or shape[2] != cfg.d_model):
-                raise ValueError(f"prefix_embeds {shape} must be (B={b}, "
-                                 f"P<={s}, D={cfg.d_model})")
-            x = torch.cat([prefix_embeds.to(ex.compute_dtype),
-                           x[:, shape[1]:]], dim=1)
-        rope = common.rope_angles(torch.arange(s, device=tokens.device),
-                                  a.head_dim, a.rope_theta)
-        for i, blk in enumerate(self.layers):
-            h = common.norm(x, blk.ln1, cfg.norm_eps)
-            att, (k, v) = attention.attn_train(
-                blk.attn, h, a, window=attention.layer_window(
-                    a, self.is_global(i)),
-                norm_eps=cfg.norm_eps, rope=rope, ex=ex)
-            x = x + att
-            h = common.norm(x, blk.ln2, cfg.norm_eps)
-            x = x + blk.ffn(h, cfg)
+        x = self._embed(tokens, ex, prefix_embeds)
+        for i, x, (k, v) in self._layers(x, ex):
             cache["k"][i, :, :, :clen] = k[:, :, s - clen:]
             cache["v"][i, :, :, :clen] = v[:, :, s - clen:]
         x = common.norm(x, self.final_norm, cfg.norm_eps)
@@ -129,6 +155,17 @@ class Transformer(torch.nn.Module):
         if self.lm_head is None:
             return x @ self.embed.T
         return self.lm_head(x)
+
+
+def lm_loss(model: Transformer, batch, cfg: ModelConfig, ex):
+    """-> (loss, {"ce", "aux"}): the mean cross-entropy of the logits
+    against ``batch["labels"]`` (over ``batch["loss_mask"]`` where given),
+    plus 0.01 x the aux loss (the reference's ``lm_loss``)."""
+    x, aux = model.hidden(batch["tokens"], ex, batch.get("prefix_embeds"))
+    ce = common.cross_entropy(model._unembed(x), batch["labels"],
+                              logit_softcap=cfg.logit_softcap,
+                              mask=batch.get("loss_mask"))
+    return ce + 0.01 * aux, {"ce": ce, "aux": aux}
 
 
 def lm_init(cfg: ModelConfig, ex: common.ExecConfig, seed: int = 0
