@@ -71,22 +71,33 @@ Phases, in order; any failure raises and exits non-zero:
    ``paper_qwen3`` on the fitted constants, on the card and on the CPU
    path, with identical records;
 7. grad   - rmsnorm, the SSD (with and without its state), the gmm and
-   flash through ``ops`` at the train and serving shapes, bf16 and fp32:
-   the output has a grad_fn on the card, each input's gradient matches
+   flash through ``ops`` at the train and serving shapes of every family,
+   bf16 and fp32 (flash also non-causal and at Sq != Sk: Whisper's
+   cross-attention and encoder; the gmm at Mixtral's w1 and w2): the
+   output has a grad_fn on the card, each input's gradient matches
    autograd through the plain version on the same tensors, and forward +
    backward is timed with its bound, the plain version and the library;
-8. train  - TinyLlama-1.1B and Mamba2-780M at full width and depth, random
-   weights from seed 0, float32 master weights and bf16 compute, batch 8
-   x 1024 through ``launch.steps.make_train_step``: 3 warm-up and 10
-   timed steps (step ms, tokens/s, model FLOP/s, peak memory), the
-   launches of one step (the forward's: the backward launches none), one
-   profiled step (forward, backward by node, optimiser, kernel classes,
-   idle share), 20 steps on one fixed batch whose loss must fall, and 2
-   layers at full width, batch 2 x 256: one step on the card against the
-   CPU in float32 (loss, every gradient, m, v; the update against the
-   CPU's AdamW on the card's gradients), and each gradient's bf16 error
-   against its device's float32 one, the card's (the kernels) within
-   twice the CPU's (the plain versions) + 1e-3.
+8. train  - one path a family at full width, random weights from seed 0,
+   float32 master weights and bf16 compute, batch 8 x 1024 through
+   ``launch.steps.make_train_step``: TinyLlama-1.1B and Mamba2-780M at
+   full depth, Mixtral-8x7B at 2 of 32 layers (the router's aux loss; the
+   gmm's dx on the kernel), LLaVA-NeXT-34B at 2 of 60 (the loss masked
+   over the 576 prefix positions), Zamba2-7B at 15 of 81 (the shared
+   block applied twice) and Whisper-medium at 24 + 24 (8 x 384 decoder
+   tokens over 1500 frames).  Each: 3 warm-up and 10 timed steps (step
+   ms, tokens/s, model FLOP/s, peak memory beside the reckoned 18 B a
+   parameter of state), the launches of one step (the forward's, and the
+   gmm's dx in the backward), one profiled step (forward, backward by
+   node, optimiser, kernel classes, idle share), 20 steps on one fixed
+   batch whose loss must fall, and a cut depth at full width, batch 2
+   (TinyLlama, Mamba2 2 layers x 256; Mixtral 1 x 256; LLaVA 1 x 640;
+   Zamba2 7 x 256; Whisper 2 + 2 x 256 over 1500 frames): one step on
+   the card against the CPU in float32 (loss, every gradient, m, v; a
+   parameter past the tolerance has its gradient held against the CPU
+   in float64, within twice the CPU's float32 error + the tolerance; the
+   update against the CPU's AdamW on the card's gradients), and each
+   gradient's bf16 error against its device's float32 one, the card's
+   (the kernels) within twice the CPU's (the plain versions) + 1e-3.
 
 The last lines are the card's name and power limit (nvidia-smi), one JSON
 line ``{"kernels": [...]}`` and ``{"ok": true, "device": {...}}``.
@@ -313,7 +324,7 @@ def _attn_mask(sq: int, sk: int, window, causal: bool) -> torch.Tensor:
     return keep & (c <= r) if causal else keep
 
 
-BF16, FP32 = torch.bfloat16, torch.float32
+BF16, FP32, FP64 = torch.bfloat16, torch.float32, torch.float64
 FLASH_CASES = [
     # name, b, hq, hkv, sq, sk, d, window, softcap, causal, dtype
     ("main", 8, 32, 4, 1024, 1024, 64, None, 0.0, True, BF16),
@@ -1429,9 +1440,9 @@ def phase_calibrate():
 GRAD_CASES = [
     # name, op, shape, dtype.  rmsnorm: (rows, D); ssd: (Bb, S, H, P, G,
     # N, chunk); gmm: (experts, rows per expert, K, N, block_t); flash:
-    # (B, Hq, Hkv, S, D), causal.  TinyLlama's and Mamba2's norm widths,
-    # Mamba2's SSD and TinyLlama's attention at the train shape (batch 8 x
-    # 1024), Qwen3-MoE's gmm w1 at prefill and at decode.
+    # (B, Hq, Hkv, Sq, Sk, D, causal).  TinyLlama's and Mamba2's norm
+    # widths, Mamba2's SSD and TinyLlama's attention at the train shape
+    # (batch 8 x 1024), Qwen3-MoE's gmm w1 at prefill and at decode.
     ("tinyllama_ln", "rmsnorm", (SERVE_BATCH * SERVE_PROMPT, 2048), BF16),
     ("tinyllama_ln_fp32", "rmsnorm", (SERVE_BATCH * SERVE_PROMPT, 2048),
      FP32),
@@ -1445,8 +1456,22 @@ GRAD_CASES = [
     ("qwen3_w1", "gmm", (128, 640, 4096, 1536, 128), BF16),
     ("qwen3_decode", "gmm", (128, 8, 4096, 1536, 8), BF16),
     ("qwen3_decode_fp32", "gmm", (128, 8, 4096, 1536, 8), FP32),
-    ("tinyllama_flash", "flash", (8, 32, 4, 1024, 64), BF16),
-    ("flash_fp32", "flash", (2, 32, 4, 512, 64), FP32),
+    ("tinyllama_flash", "flash", (8, 32, 4, 1024, 1024, 64, True), BF16),
+    ("flash_fp32", "flash", (2, 32, 4, 512, 512, 64, True), FP32),
+    # the train paths of the moe, vlm, hybrid and encdec families (batch
+    # 8 x 1024; Whisper 8 x 384 over 1500 frames): Whisper's
+    # cross-attention (non-causal, Sq != Sk) and encoder, LLaVA's GQA
+    # group of 7, Zamba2's shared block at D = 112, Mixtral's gmm w1 and
+    # w2 (2560 rows of each of 8 experts), Zamba2's SSD (112 heads, N 64)
+    ("whisper_cross_flash", "flash", (8, 16, 16, 384, 1500, 64, False),
+     BF16),
+    ("whisper_encoder_flash", "flash", (8, 16, 16, 1500, 1500, 64, False),
+     BF16),
+    ("llava_flash", "flash", (8, 56, 8, 1024, 1024, 128, True), BF16),
+    ("zamba2_flash", "flash", (8, 32, 32, 1024, 1024, 112, True), BF16),
+    ("mixtral_w1", "gmm", (8, 2560, 4096, 14336, 128), BF16),
+    ("mixtral_w2", "gmm", (8, 2560, 14336, 4096, 128), BF16),
+    ("zamba2_ssd", "ssd", (8, 1024, 112, 64, 1, 64, 128), BF16),
 ]
 # Relative L2 of each gradient of the op (kernel forward) against autograd
 # through its plain version on the same CUDA tensors.  rmsnorm and ssd:
@@ -1471,8 +1496,7 @@ GRAD_KERNEL = {"rmsnorm": "rmsnorm", "ssd": "ssd_scan",
 def rel_l2(got, want) -> float:
     """||got - want|| / ||want|| in float64, on the card (the train check's
     CPU tensors too: hundreds of millions of elements a comparison)."""
-    got, want = (t.to(device="cuda", dtype=torch.float64)
-                 for t in (got, want))
+    got, want = (t.to("cuda").to(torch.float64) for t in (got, want))
     return ((got - want).norm() / want.norm().clamp_min(1e-30)).item()
 
 
@@ -1527,14 +1551,17 @@ def _grad_case(op, shape, dt, gen):
                 [torch.randn(t, n, device="cuda", generator=gen).to(dt)],
                 2.0 * t * k * n,
                 lambda x, w: torch.bmm(x.view(e, rows, k), w).view(t, n))
-    b, hq, hkv, s, d = shape
-    ins = [rnd(b, hq, s, d), rnd(b, hkv, s, d), rnd(b, hkv, s, d)]
-    return (lambda q, k, v: ops.flash_attention(q, k, v),
-            lambda q, k, v: flash_attention_plain(q, k, v)[0], ins,
-            [torch.randn(b, hq, s, d, device="cuda", generator=gen).to(dt)],
-            4.0 * d * _attn_live_pairs(s, s, None, True) * b * hq,
+    b, hq, hkv, sq, sk, d, causal = shape
+    ins = [rnd(b, hq, sq, d), rnd(b, hkv, sk, d), rnd(b, hkv, sk, d)]
+    return (lambda q, k, v: ops.flash_attention(q, k, v, causal=causal),
+            lambda q, k, v: flash_attention_plain(q, k, v,
+                                                  causal=causal)[0], ins,
+            [torch.randn(b, hq, sq, d, device="cuda", generator=gen).to(dt)],
+            4.0 * d * _attn_live_pairs(sq, sk, None, causal) * b * hq,
+            # SDPA's causal mask is top-left aligned: the causal cases
+            # here have Sq == Sk, where it is the kernel's
             lambda q, k, v: F.scaled_dot_product_attention(
-                q, k, v, is_causal=True, enable_gqa=True))
+                q, k, v, is_causal=causal, enable_gqa=True))
 
 
 def _fwd_bwd(fn, ins, douts):
@@ -1597,21 +1624,49 @@ def phase_grad():
 
 
 # ---------------------------------------------------------------------------
-# 8. train: TinyLlama-1.1B and Mamba2-780M at full width and depth
+# 8. train: every family at full width, on one card
 # ---------------------------------------------------------------------------
-TRAIN_PATHS = (("tinyllama-1.1b", "train_tinyllama"),
-               ("mamba2-780m", "train_mamba2"))
-TRAIN_BATCH, TRAIN_SEQ = SERVE_BATCH, SERVE_PROMPT
+# arch, label, depth trained (None: the config's), sequence length (encdec:
+# the decoder's, over the config's 1500 encoder frames), depth of the
+# card-vs-CPU check, its sequence length.  A training state costs ~18 B a
+# parameter (float32 weights, gradients, m and v, and the bf16 copy of each
+# call), so the configs past one 80 GB card train at a cut depth:
+TRAIN_PATHS = (
+    ("tinyllama-1.1b", "train_tinyllama", None, 1024, 2, 256),
+    ("mamba2-780m", "train_mamba2", None, 1024, 2, 256),
+    # 2 of 32 layers, 3.165 B params (57.0 GB at 18 B); the check's one
+    # layer is 1.713 B, ~6.9 GB a float32 copy on the host
+    ("mixtral-8x7b", "train_mixtral", 2, 1024, 1, 256),
+    # 2 of 60 layers, 2.033 B params (36.6 GB); the check's prompt holds
+    # the 576 prefix positions, which the loss mask leaves out
+    ("llava-next-34b", "train_llava", 2, 1024, 1, 640),
+    # 15 of 81 layers: 2 periods of 6 and the shared block, then 3
+    # leftover layers, as 81 = 13 x 6 + 3; the check runs one period and
+    # one leftover layer, as its serve check
+    ("zamba2-7b", "train_zamba2", 15, 1024, 7, 256),
+    # all 24 + 24 layers over 1500 frames, a 384-token decoder; the check
+    # runs 2 + 2 layers
+    ("whisper-medium", "train_whisper", None, WHISPER_PROMPT, 2, 256),
+)
+TRAIN_BATCH = SERVE_BATCH
+TRAIN_STATE_BYTES_PER_PARAM = 18
 TRAIN_WARMUP, TRAIN_TIMED = 3, 10
-# the learning check: tests/test_substrate.py's schedule, one fixed batch;
-# the mean of the last 3 losses must sit this far under the first 3's
-# (the reference's own margin, there over means of 5 of 60 steps)
-LEARN_STEPS, LEARN_LR, LEARN_MARGIN = 20, dict(base_lr=5e-3, warmup=5,
+# the learning check: tests/test_substrate.py's schedule (warm-up 5 of
+# 120) at base lr 5e-4 where it has 5e-3, one fixed batch; the mean of
+# the last 3 losses must sit this far under the first 3's (the
+# reference's own margin, there over means of 5 of 60 steps).  The
+# first AdamW steps move every weight by ~lr, and the
+# weights' scale is d_model^-0.5: at 5e-3 the loss of TinyLlama, Mamba2
+# and Whisper swung back above its start within 20 steps on an H100, and
+# that of LLaVA (2 layers, d_model 7168) and Zamba2 (15) climbed from ~11
+# to 40 and 22; at 5e-4 LLaVA, Mixtral and Zamba2 fell below 0.06.
+LEARN_STEPS, LEARN_LR, LEARN_MARGIN = 20, dict(base_lr=5e-4, warmup=5,
                                                total=120), 0.3
-# card vs CPU: 2 layers at full width, batch 2 x 256, float32
-CHECK_TRAIN_LAYERS, CHECK_TRAIN_BATCH, CHECK_TRAIN_SEQ = 2, 2, 256
+
+# card vs CPU: the path's check depth at full width, batch 2, float32
+CHECK_TRAIN_BATCH = 2
 TRAIN_LOSS_RTOL = 1e-5
-TRAIN_GRAD_REL_L2 = 1e-4     # each gradient, and m and v (linear in it)
+TRAIN_GRAD_REL_L2 = 1e-4     # each gradient, m (linear in it) and v
 # the card's parameters, m and v after one update against the CPU's AdamW
 # on the card's gradients: float32 elementwise arithmetic, sqrt and
 # division a rounding apart, the global norm summed in another order
@@ -1619,41 +1674,103 @@ TRAIN_OPT_REL_L2 = 1e-6
 # bf16: each gradient's error against the float32 gradient of its own
 # device, the kernel path's against twice the plain path's (the CPU's)
 BF16_FACTOR, BF16_SLACK = 2.0, 1e-3
+# where _train_run's outputs hold each compared quantity
+TRAIN_OUT = {"grad": 1, "m": 3, "v": 4, "param": 2}
 HAND_KERNELS = ("fa_wgmma_kernel", "fa_fwd_kernel", "rmsnorm_reg_kernel",
                 "rmsnorm_loop_kernel", "chunk_state_kernel",
                 "state_pass_kernel", "chunk_scan_kernel", "ssd_kernel",
                 "gmm_wgmma_kernel", "gmm_mma_kernel", "gmm_fma_kernel")
 BACKWARD_NODES = {"flash_attention_bwd_plain": "_FlashAttentionBackward",
                   "rmsnorm recompute": "_RMSNormBackward",
-                  "ssd recompute": "_SSDBackward"}
+                  "ssd recompute": "_SSDBackward",
+                  "moe_gmm dx kernel + dw loop": "_MoEGMMBackward"}
 
 
-def expected_train_launches(cfg) -> dict:
-    """Kernel launches of one train step (accum 1): the forward's alone.
-    The backward recomputes rmsnorm and the SSD through their plain
-    versions and flash's backward is torch ops, so it launches none."""
-    counts = {"flash_attention_fwd": 0, "rmsnorm": 2 * cfg.n_layers + 1,
-              "ssd_scan": 0, "moe_gmm": 0, "wavefront": 0}
-    if cfg.family == "ssm":
-        # three bf16 kernels a layer: the sequence holds more than a chunk
-        counts["ssd_scan"] = 3 * cfg.n_layers
-    else:
-        counts["flash_attention_fwd"] = cfg.n_layers
+def expected_train_launches(cfg, seq: int) -> dict:
+    """Kernel launches of one train step (accum 1) of ``seq`` tokens (an
+    encdec's decoder's), derived from the models' code.  The forward
+    launches each kernel as a prefill does (``expected_launches``' counts
+    without decode); in the backward, rmsnorm and the SSD recompute
+    through their plain versions and flash's backward is torch ops, which
+    launch none, and the gmm's dx is the gmm kernel itself over the
+    transposed experts: one more launch for each forward one."""
+    counts = {"flash_attention_fwd": 0, "rmsnorm": 0, "ssd_scan": 0,
+              "moe_gmm": 0, "wavefront": 0}
+    if cfg.family == "encdec":
+        # encoder: flash and ln1, ln2 a layer, its final norm; decoder:
+        # flash for self- and cross-attention, ln1, ln_x and ln2 a layer,
+        # the final norm
+        counts["flash_attention_fwd"] = cfg.encoder_layers + 2 * cfg.n_layers
+        counts["rmsnorm"] = 2 * cfg.encoder_layers + 1 + 3 * cfg.n_layers + 1
+        return counts
+    if cfg.family in ("ssm", "hybrid"):
+        # per SSM layer its norm and the gate norm, one final norm; in bf16
+        # the SSD runs three kernels where the sequence holds more than
+        # one chunk, else the chunk scan alone
+        counts["rmsnorm"] = 2 * cfg.n_layers + 1
+        counts["ssd_scan"] = (3 if seq > cfg.ssm.chunk else 1) * cfg.n_layers
+        if cfg.family == "hybrid":
+            # every application of the shared block: flash, ln1 and ln2
+            n_apps = cfg.n_layers // cfg.hybrid_period
+            counts["flash_attention_fwd"] = n_apps
+            counts["rmsnorm"] += 2 * n_apps
+        return counts
+    # dense, moe and vlm: per layer flash, ln1, ln2 and, with qk-norm, one
+    # launch each for q and k; the final norm
+    norms = 2 + (2 if cfg.attn.qk_norm else 0)
+    counts["flash_attention_fwd"] = cfg.n_layers
+    counts["rmsnorm"] = norms * cfg.n_layers + 1
+    if cfg.moe is not None:
+        # w1, w3 and w2 of every layer forward, and each one's dx backward
+        counts["moe_gmm"] = 2 * 3 * cfg.n_layers
     return counts
 
 
-def _model_flops(cfg, model) -> float:
-    """6 N a token, N the parameters in products (all but an untied input
-    embedding), plus attention's 12 L S^2 d a sequence (forward and
-    backward, no causal saving counted)."""
-    n = sum(p.numel() for p in model.parameters())
+def _model_flops(cfg, model, seq: int) -> float:
+    """Model FLOPs of one train step: 6 N a token, N the parameters in
+    products (all but an untied input embedding and Whisper's pos_embed;
+    of a MoE's experts the top_k / n_experts a token uses; Zamba2's shared
+    block once per application; Whisper's encoder over its frames, its
+    decoder over the tokens), plus attention's 12 d a (query, key) pair
+    (forward and backward, no causal saving counted): L S^2 a sequence,
+    Zamba2's per application, Whisper's encoder over 1500^2, its
+    decoder's self-attention over S^2 and cross-attention over S x 1500."""
+    named = dict(model.named_parameters())
+    n = sum(p.numel() for p in named.values())
     if not cfg.tie_embeddings and cfg.family != "ssm":
         n -= model.embed.numel()
-    flops = 6.0 * n * TRAIN_BATCH * TRAIN_SEQ
-    if cfg.attn is not None:
-        flops += (12.0 * cfg.n_layers * TRAIN_SEQ ** 2
-                  * cfg.attn.n_heads * cfg.attn.head_dim * TRAIN_BATCH)
-    return flops
+    if cfg.moe is not None:
+        experts = sum(p.numel() for name, p in named.items()
+                      if name.split(".")[-1] in ("w1", "w2", "w3")
+                      and ".moe." in name)
+        n -= experts * (1 - cfg.moe.top_k / cfg.moe.n_experts)
+    tokens = TRAIN_BATCH * seq
+    a = cfg.attn
+    pair = 12.0 * a.head_dim * a.n_heads * TRAIN_BATCH if a else 0.0
+    if cfg.family == "encdec":
+        enc = sum(p.numel() for name, p in named.items()
+                  if name.startswith(("enc_layers.", "enc_norm")))
+        dec = n - enc - model.pos_embed.numel()
+        frames = cfg.encoder_len
+        return (6.0 * enc * TRAIN_BATCH * frames + 6.0 * dec * tokens
+                + pair * (cfg.encoder_layers * frames ** 2
+                          + cfg.n_layers * (seq ** 2 + seq * frames)))
+    if cfg.family == "hybrid":
+        n_apps = cfg.n_layers // cfg.hybrid_period
+        shared = sum(p.numel() for p in model.shared.parameters())
+        return 6.0 * (n + (n_apps - 1) * shared) * tokens \
+            + pair * n_apps * seq ** 2
+    return 6.0 * n * tokens + (pair * cfg.n_layers * seq ** 2 if a else 0.0)
+
+
+def _host_memory() -> dict:
+    """The host's available memory (GB, /proc/meminfo) and this process's
+    peak resident set so far (GB)."""
+    import resource
+    avail = next(int(line.split()[1]) for line in
+                 open("/proc/meminfo") if line.startswith("MemAvailable"))
+    return {"host_available_gb": avail * 1024 / 1e9, "peak_rss_gb":
+            resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024 / 1e9}
 
 
 def _train_region(name: str):
@@ -1738,15 +1855,20 @@ def _profile_step(step, state, batch):
         "top_kernels": sorted(top.items(), key=lambda kv: -kv[1])[:12]}
 
 
-def _train_run(cfg, ex, source, batch, **lr):
+def _train_run(cfg, ex, source, batch, update=True, **lr):
     """A copy of the module ``source`` on ``ex.device``, one train step on
     ``batch`` -> (loss, {name: gradient}, {name: parameter after the
-    update}, m, v)."""
-    from repro_torch.launch.steps import TrainState, make_train_step
+    update}, m, v); with ``update`` False the step's gradients alone
+    (``make_grad_step``) -> (loss, {name: gradient})."""
+    from repro_torch.launch.steps import (TrainState, make_grad_step,
+                                          make_train_step)
     from repro_torch.optim import adamw_init
     model = type(source)(cfg, device="meta", dtype=ex.param_dtype)
     model.to_empty(device=ex.device)
     model.load_state_dict(source.state_dict())
+    if not update:
+        loss, _ = make_grad_step(cfg, ex)(model, batch)
+        return loss.item(), {n: p.grad for n, p in model.named_parameters()}
     state = TrainState(model=model,
                        opt=adamw_init(dict(model.named_parameters())))
     state, met = make_train_step(cfg, ex, **lr)(state, batch)
@@ -1756,70 +1878,132 @@ def _train_run(cfg, ex, source, batch, **lr):
             state.opt.v)
 
 
-def _train_check(arch):
-    """2 layers at full width: one step in float32 on the card (the
-    kernels) and on the CPU (the plain versions) from the same weights
-    and batch; then each device's bf16-compute gradients against its own
-    float32 ones."""
+def _train_check(arch: str, depth: int, seq: int):
+    """``depth`` layers at full width (an encdec's encoder as deep as its
+    decoder): one step in float32 on the card (the kernels) and on the CPU
+    (the plain versions) from the same weights and batch; then each
+    device's bf16-compute gradients against its own float32 ones.  Each
+    run's results are compared and dropped as soon as they can be, so
+    that a 1.7 B-parameter layer fits the host: the card's float32 step
+    stays on the card, the CPU's AdamW on the card's gradients is checked
+    before the CPU's own steps run, and a bf16 run (the step's gradients,
+    no update) keeps its errors only."""
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.launch.train import train_exec_config
     from repro_torch.models import build_model
     from repro_torch.optim import adamw_init, adamw_update, cosine_schedule
 
-    cfg = dataclasses.replace(get_config(arch), n_layers=CHECK_TRAIN_LAYERS)
+    cfg = get_config(arch)
+    cfg = dataclasses.replace(cfg, n_layers=depth, encoder_layers=(
+        depth if cfg.encoder_layers else 0))
     fns = build_model(cfg)
-    shape = ShapeConfig("check", "train", CHECK_TRAIN_SEQ, CHECK_TRAIN_BATCH)
+    shape = ShapeConfig("check", "train", seq, CHECK_TRAIN_BATCH)
     # one set of weights for both devices (their generators draw apart)
+    t0 = time.perf_counter()
     source = fns.init(SEED, train_exec_config(cfg, torch.device("cpu")))
     weights = source.state_dict()
-    runs, secs = {}, {}
-    for dev in ("cuda", "cpu"):
-        ex16 = train_exec_config(cfg, torch.device(dev))
-        ex16 = dataclasses.replace(ex16, compute_dtype=BF16)
-        for dt in (FP32, BF16):
-            ex = dataclasses.replace(ex16, compute_dtype=dt)
-            batch = fns.make_batch(SEED + 7, shape, ex, kind="train")
-            t0 = time.perf_counter()
-            runs[dev, dt] = _train_run(cfg, ex, source, batch, **LEARN_LR)
-            secs[f"{dev}_{str(dt)[6:]}"] = time.perf_counter() - t0
-    card, cpu = runs["cuda", FP32], runs["cpu", FP32]
-    loss_err = abs(card[0] - cpu[0]) / abs(cpu[0])
+    n_params = sum(t.numel() for t in weights.values())
+    memory = {"start": _host_memory()}
+    secs = {"init on the CPU": time.perf_counter() - t0}
+
+    def run(dev, dt):
+        # a float32 or float64 step whole, a bf16 step's gradients alone
+        ex = dataclasses.replace(train_exec_config(cfg, torch.device(dev)),
+                                 compute_dtype=dt)
+        if dt == FP64:
+            ex = dataclasses.replace(ex, param_dtype=dt)
+        batch = fns.make_batch(SEED + 7, shape, ex, kind="train")
+        t0 = time.perf_counter()
+        out = _train_run(cfg, ex, source, batch, update=dt != BF16,
+                         **LEARN_LR)
+        secs[f"{dev}_{str(dt)[6:]}"] = time.perf_counter() - t0
+        memory[f"after {dev} {str(dt)[6:]}"] = _host_memory()
+        return out
+
+    def bf16_errors(g16, g32):
+        return {n: rel_l2(g16[n], g) for n, g in g32.items()}
+
+    card = run("cuda", FP32)
+    e_kernel = bf16_errors(run("cuda", BF16)[1], card[1])
     # the card's update against the CPU's AdamW applied to the card's own
     # gradients: the optimiser's arithmetic apart from the gradients'
     # error (at the first step the update is lr g/(|g| + eps), which
     # turns a small relative error of a gradient element near eps into a
     # large one of its update: conv_b, zero at init, is all update)
+    t0 = time.perf_counter()
     w32 = {n: t.float() for n, t in weights.items()}
     upd = adamw_update(w32, {n: g.cpu() for n, g in card[1].items()},
                        adamw_init(w32), cosine_schedule(**LEARN_LR))
-    worst = {}
-    for what, got, want, tol in (
-            ("grad", card[1], cpu[1], TRAIN_GRAD_REL_L2),
-            ("m", card[3], cpu[3], TRAIN_GRAD_REL_L2),
-            ("v", card[4], cpu[4], TRAIN_GRAD_REL_L2),
-            ("param, card's gradients", card[2], upd[0], TRAIN_OPT_REL_L2),
-            ("m, card's gradients", card[3], upd[1].m, TRAIN_OPT_REL_L2),
-            ("v, card's gradients", card[4], upd[1].v, TRAIN_OPT_REL_L2),
-            ("param", card[2], cpu[2], None)):
-        errs = {n: rel_l2(got[n], t) for n, t in want.items()}
-        name = max(errs, key=errs.get)
-        worst[what] = {"param": name, "rel_l2": errs[name], "tol": tol}
+    secs["the CPU's AdamW on the card's gradients"] = \
+        time.perf_counter() - t0
+    worst, errs = {}, {}
+
+    def compare(what, got, want, tol):
+        errs[what] = {n: rel_l2(got[n], t) for n, t in want.items()}
+        name = max(errs[what], key=errs[what].get)
+        worst[what] = {"param": name, "rel_l2": errs[what][name], "tol": tol}
+
+    for what, got, want in (("param, card's gradients", card[2], upd[0]),
+                            ("m, card's gradients", card[3], upd[1].m),
+                            ("v, card's gradients", card[4], upd[1].v)):
+        compare(what, got, want, TRAIN_OPT_REL_L2)
+    memory["card's gradients through the CPU's AdamW"] = _host_memory()
+    del upd
+    cpu = run("cpu", FP32)
+    t0 = time.perf_counter()
+    for what, i in TRAIN_OUT.items():
+        compare(what, card[i], cpu[i],
+                None if what == "param" else TRAIN_GRAD_REL_L2)
+    secs["compare card vs CPU"] = time.perf_counter() - t0
+    # Where a parameter's gradient, m or v misses the fixed tolerance, that
+    # quantity is held against the CPU's float64 step instead: the card no
+    # more than the fixed tolerance further from it than the CPU's float32
+    # (which meeting the fixed tolerance implies).  Deep stacks' gradients
+    # that sum with heavy cancellation (an SSM's D, conv_b, dt_bias,
+    # A_log) turn float32 roundings into errors near the fixed tolerance:
+    # over Zamba2's 7 layers the CPU's own float32 gradients sit up to
+    # 1.09e-4 from float64, so the card cannot meet 1e-4 against them
+    # however exact it is.
+    missed = sorted({(what, n) for what in ("grad", "m", "v")
+                     for n, e in errs[what].items() if e > TRAIN_GRAD_REL_L2})
+    vs64 = []
+    if missed:
+        exact = run("cpu", FP64)
+        for what, n in missed:
+            i = TRAIN_OUT[what]
+            e_card = rel_l2(card[i][n], exact[i][n])
+            e_cpu = rel_l2(cpu[i][n], exact[i][n])
+            limit = e_cpu + TRAIN_GRAD_REL_L2
+            vs64.append({"what": what, "param": n, "e_card": e_card,
+                         "e_cpu": e_cpu, "limit": limit,
+                         "ratio": e_card / limit})
+        vs64.sort(key=lambda r: -r["ratio"])
+        del exact
+    loss_err = abs(card[0] - cpu[0]) / abs(cpu[0])
+    loss_card, loss_cpu, cpu_grads = card[0], cpu[0], cpu[1]
+    del card, cpu
+    torch.cuda.empty_cache()
+    e_plain = bf16_errors(run("cpu", BF16)[1], cpu_grads)
+    del cpu_grads
+    layers = (f"{depth} + {depth}" if cfg.encoder_layers else f"{depth}")
     log("train", {"model": cfg.name, "card": card_line(),
-                  "check": "card vs CPU, float32",
-                  "layers": CHECK_TRAIN_LAYERS, "batch": CHECK_TRAIN_BATCH,
-                  "seq": CHECK_TRAIN_SEQ, "loss_card": card[0],
-                  "loss_cpu": cpu[0], "loss_rel_err": loss_err,
-                  "loss_tol": TRAIN_LOSS_RTOL, "worst": worst,
-                  "seconds": secs})
+                  "check": "card vs CPU, float32", "layers": layers,
+                  "params_b": n_params / 1e9,
+                  "batch": CHECK_TRAIN_BATCH, "seq": seq,
+                  "loss_card": loss_card, "loss_cpu": loss_cpu,
+                  "loss_rel_err": loss_err, "loss_tol": TRAIN_LOSS_RTOL,
+                  "worst": worst, "seconds": secs, "host_memory": memory,
+                  "past_the_fixed_tolerance": len(missed),
+                  "those_against_float64": {
+                      "check": f"e_card <= e_cpu + {TRAIN_GRAD_REL_L2}",
+                      "worst_five": vs64[:5]}})
     # bf16: the kernel path's error against twice the plain path's
     rows = []
-    for n, g32 in runs["cuda", FP32][1].items():
-        e_kernel = rel_l2(runs["cuda", BF16][1][n], g32)
-        e_plain = rel_l2(runs["cpu", BF16][1][n], runs["cpu", FP32][1][n])
-        limit = BF16_FACTOR * e_plain + BF16_SLACK
-        rows.append({"param": n, "e_kernel": e_kernel, "e_plain": e_plain,
-                     "limit": limit, "ratio": e_kernel / limit})
+    for n, ek in e_kernel.items():
+        limit = BF16_FACTOR * e_plain[n] + BF16_SLACK
+        rows.append({"param": n, "e_kernel": ek, "e_plain": e_plain[n],
+                     "limit": limit, "ratio": ek / limit})
     rows.sort(key=lambda r: -r["ratio"])
     log("train", {"model": cfg.name, "card": card_line(),
                   "check": "bf16 gradients, e_kernel <= "
@@ -1829,19 +2013,26 @@ def _train_check(arch):
                   "largest_e_plain": max(r["e_plain"] for r in rows)})
     check(loss_err <= TRAIN_LOSS_RTOL, f"train {cfg.name}: card loss vs CPU "
           f"{loss_err} (tol {TRAIN_LOSS_RTOL})")
+    # the update's arithmetic; each gradient, m and v past the fixed
+    # tolerance is in vs64
     for what, w in worst.items():
-        check(w["tol"] is None or w["rel_l2"] <= w["tol"],
-              f"train {cfg.name}: card {what} vs CPU at {w['param']}: "
-              f"{w['rel_l2']} (tol {w['tol']})")
+        if what not in ("grad", "m", "v", "param"):
+            check(w["rel_l2"] <= w["tol"], f"train {cfg.name}: card {what} "
+                  f"vs CPU at {w['param']}: {w['rel_l2']} (tol {w['tol']})")
+    bad = [r for r in vs64 if not r["e_card"] <= r["limit"]]
+    check(not bad, f"train {cfg.name}: float32 gradients, m or v past the "
+          f"fixed tolerance and the float64 one: {bad}")
     bad = [r for r in rows if not r["e_kernel"] <= r["limit"]]
     check(not bad, f"train {cfg.name}: bf16 gradients past the derived "
           f"tolerance: {bad}")
 
 
-def phase_train(arch: str):
-    """Train at full width and depth: 3 warm-up and 10 timed steps with
-    the launch counts of one, a profiled step, the learning check; then the
-    2-layer card-vs-CPU checks.  Returns the counted step's launches."""
+def phase_train(arch: str, depth, seq: int, check_depth: int,
+                check_seq: int):
+    """Train at full width (``depth`` layers, None: all): 3 warm-up and 10
+    timed steps with the launch counts of one, a profiled step, the
+    learning check; then the card-vs-CPU checks at ``check_depth``.
+    Returns the counted step's launches."""
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.launch.steps import init_train_state, make_train_step
@@ -1850,17 +2041,25 @@ def phase_train(arch: str):
 
     t_phase = time.perf_counter()
     cfg = get_config(arch)
+    full_depth = cfg.n_layers
+    if depth is not None:
+        cfg = dataclasses.replace(cfg, n_layers=depth)
     ex = train_exec_config(cfg, torch.device("cuda"))
     fns = build_model(cfg)
-    shape = ShapeConfig("train", "train", TRAIN_SEQ, TRAIN_BATCH)
+    shape = ShapeConfig("train", "train", seq, TRAIN_BATCH)
     batches = [fns.make_batch(SEED + i, shape, ex, kind="train")
                for i in range(TRAIN_WARMUP + TRAIN_TIMED)]
     state = init_train_state(cfg, ex, SEED)
     step = make_train_step(cfg, ex)
     n_params = sum(p.numel() for p in state.model.parameters())
-    log("train", f"{cfg.name}: {cfg.n_layers} layers (full depth), "
-        f"d_model {cfg.d_model}, {n_params / 1e9:.3f} B params, float32 "
-        f"master weights, bf16 compute, batch {TRAIN_BATCH} x {TRAIN_SEQ}")
+    state_gb = TRAIN_STATE_BYTES_PER_PARAM * n_params / 1e9
+    enc = (f", {cfg.encoder_layers} encoder layers over {cfg.encoder_len} "
+           f"frames" if cfg.encoder_layers else "")
+    log("train", f"{cfg.name}: {cfg.n_layers} of {full_depth} layers{enc}, "
+        f"d_model {cfg.d_model}, {n_params / 1e9:.3f} B params "
+        f"({state_gb:.1f} GB of training state at "
+        f"{TRAIN_STATE_BYTES_PER_PARAM} B a param), float32 master weights, "
+        f"bf16 compute, batch {TRAIN_BATCH} x {seq}")
     metrics = []
     for b in batches[:TRAIN_WARMUP]:
         state, m = step(state, b)
@@ -1887,27 +2086,30 @@ def phase_train(arch: str):
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     losses = [m["loss"].item() for m in metrics]
     norms = [m["grad_norm"].item() for m in metrics]
-    expected = expected_train_launches(cfg)
+    expected = expected_train_launches(cfg, seq)
     log("train", f"{cfg.name} one step's launches {launches}; expected "
         f"{expected}")
     check(launches == expected, f"train {cfg.name}: every kernel of the "
-          f"forward launched as often as the model calls it")
+          f"step launched as often as the model calls it")
     check(all(math.isfinite(v) for v in losses + norms),
           f"train {cfg.name}: finite losses and grad norms")
-    tokens = TRAIN_BATCH * TRAIN_SEQ
-    flops = _model_flops(cfg, state.model)
+    tokens = TRAIN_BATCH * seq
+    flops = _model_flops(cfg, state.model, seq)
     state, prof = _profile_step(step, state, batches[-1])
     # the profiler slows the host: the idle share of the timed steps
     prof["device_idle_share_timed"] = max(
         0.0, 1.0 - prof["device_busy_ms"] / step_ms)
     log("train", {"model": cfg.name, "card": card_line(),
-                  "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+                  "layers": cfg.n_layers, "full_depth": full_depth,
+                  "encoder_layers": cfg.encoder_layers,
+                  "batch": TRAIN_BATCH, "seq": seq,
                   "step_ms": step_ms, "host_wall_ms_per_step": wall_ms,
                   "tokens_per_s": tokens / step_ms * 1e3,
                   "model_flops_per_step": flops,
                   "model_flops_per_s": flops / step_ms * 1e3,
                   "share_of_989_tflops": flops / step_ms * 1e3 / 989e12,
-                  "peak_mem_gb": peak_gb, "params_b": n_params / 1e9,
+                  "peak_mem_gb": peak_gb, "state_gb_reckoned": state_gb,
+                  "params_b": n_params / 1e9,
                   "losses": losses, "grad_norms": norms, "profile": prof})
     del state, step, metrics, batches
     torch.cuda.empty_cache()
@@ -1932,9 +2134,9 @@ def phase_train(arch: str):
           f"train {cfg.name}: finite losses and grad norms on a fixed batch")
     check(last < first - LEARN_MARGIN, f"train {cfg.name}: the loss fell "
           f"by more than {LEARN_MARGIN} ({first} -> {last})")
-    del state, step, metrics
+    del state, step, metrics, batch
     torch.cuda.empty_cache()
-    _train_check(arch)
+    _train_check(arch, check_depth, check_seq)
     log("train", f"{cfg.name}: phase wall {time.perf_counter() - t_phase:.1f}"
         " s")
     return launches
@@ -2013,8 +2215,8 @@ def main() -> int:
     by_path["calibrate"] = phase_calibrate()
     t_new = time.perf_counter()
     by_path["grad"], grad_records = phase_grad()
-    for arch, label in TRAIN_PATHS:
-        by_path[label] = phase_train(arch)
+    for arch, label, *shape in TRAIN_PATHS:
+        by_path[label] = phase_train(arch, *shape)
     log("done", f"grad and train phases in "
         f"{time.perf_counter() - t_new:.1f} s")
 

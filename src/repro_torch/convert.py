@@ -90,9 +90,10 @@ def params_from_jax(tree: dict, cfg: ModelConfig) -> dict:
 
 def train_state_from_jax(state, cfg: ModelConfig):
     """The reference's ``TrainState`` (params, opt = AdamWState(step, m,
-    v)) -> (the port's model state dict, its ``AdamWState``).  Gradients
-    and moments share the parameters' tree, so ``params_from_jax`` maps
-    each (gradients too, in the tests)."""
+    v)) -> (the port's model state dict, its ``AdamWState``), for every
+    family.  Gradients and moments share the parameters' tree, so
+    ``params_from_jax`` maps each (gradients too, in the tests): the
+    router's (in, E) moments are transposed as its weight is."""
     from repro_torch.optim import AdamWState
     return params_from_jax(state.params, cfg), AdamWState(
         step=int(np.asarray(state.opt.step)),

@@ -182,7 +182,7 @@ __global__ void __launch_bounds__(kThreads) ssd_kernel(Args a) {
   float* cum = sm + lay.cum;
   float* w = sm + lay.w;
 
-  const int tid = threadIdx.x, lane = tid % 32;
+  const int tid = threadIdx.x;
   const int hh = blockIdx.x, b = blockIdx.y;
   const int gg = hh * a.g / a.h;
   const float decay_rate = a.a[hh];
@@ -211,21 +211,22 @@ __global__ void __launch_bounds__(kThreads) ssd_kernel(Args a) {
     }
     __syncthreads();  // dt is in w
 
-    // L = inclusive cumsum of dt * A over the chunk, by warp 0 in 32-row
-    // segments, while the other warps start the loads
-    if (tid < 32) {
-      float carry = 0.f;
-      for (int base = 0; base < qp; base += 32) {
-        const int i = base + lane;
-        float v = i < qp ? w[i] * decay_rate : 0.f;
-#pragma unroll
-        for (int o = 1; o < 32; o <<= 1) {
-          const float u = __shfl_up_sync(0xffffffffu, v, o);
-          if (lane >= o) v += u;
-        }
-        v += carry;
-        if (i < qp) cum[i] = v;
-        carry = __shfl_sync(0xffffffffu, v, 31);
+    // L = inclusive cumsum of dt * A over the chunk, by one thread while
+    // the others start the loads: each dt_i A rounded, then added in
+    // order in float, the numbers torch.cumsum gives on the card.  Each
+    // step's rounding then moves one L_i - L_{i-1}, and every exp(L_i -
+    // L_j) sees only the steps between j and i; sums rounded once (in
+    // double, as the CPU's cumsum) or a warp's tree scan perturb every
+    // difference instead.  On an H100, over Zamba2's 7-layer float32
+    // train check, y sits 1.08e-6 from float64 this way against 1.46e-6
+    // rounded once, and the gradients 1.12e-4 (the CPU's own: 1.09e-4)
+    // against 2.36e-4.
+    if (tid == 0) {
+      float acc = 0.f;
+#pragma unroll 8
+      for (int i = 0; i < qp; ++i) {
+        acc = __fadd_rn(acc, __fmul_rn(w[i], decay_rate));
+        cum[i] = acc;
       }
     }
     load_slab<false>(X + t0 * x_row, x_row, q, qp, p, w, Xs, p);

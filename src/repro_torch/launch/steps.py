@@ -1,6 +1,5 @@
 """Train, prefill and serve steps (counterpart of
-``repro/launch/steps.py``; training on one device, for the families whose
-loss is ported)."""
+``repro/launch/steps.py``; training on one device, every family)."""
 from __future__ import annotations
 
 from typing import NamedTuple
@@ -11,7 +10,7 @@ from torch.func import functional_call
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import build_model
 from repro_torch.models.common import ExecConfig
-from repro_torch.optim import (AdamWState, adamw_init, adamw_update,
+from repro_torch.optim import (AdamWState, adamw_init, adamw_update_,
                                cosine_schedule)
 
 
@@ -62,40 +61,35 @@ def _microbatches(batch: dict, accum: int):
              for k, v in batch.items()} for i in range(accum)]
 
 
-def make_train_step(cfg: ModelConfig, ex: ExecConfig, *, base_lr=3e-4,
-                    warmup=100, total=10000, accum: int = 1):
-    """train_step(state, batch) -> (state, metrics): the loss in
+def make_grad_step(cfg: ModelConfig, ex: ExecConfig, *, accum: int = 1):
+    """grad_step(model, batch) -> (loss, metrics): the loss in
     ``ex.compute_dtype`` through ``_call_cast`` (the parameters stay in
     ``param_dtype``, float32 master weights, and take the gradients
-    through the cast), backward, then one AdamW update of the parameters
-    in place.  ``accum`` > 1 splits the batch's leading dim into
-    microbatches run in turn; their gradients sum in each parameter's
-    ``.grad`` (float32 with float32 master weights, as the reference's
-    float32 sum) and are divided by ``accum``.  Each parameter's
-    ``.grad`` keeps the step's summed gradient until the next step.
-    metrics: loss, ce, aux, lr, grad_norm (tensors where computed on the
-    device, so that a step does not wait for them)."""
+    through the cast) and its backward into each parameter's ``.grad``,
+    which it clears first.  ``accum`` > 1 splits the batch's leading dim
+    into microbatches run in turn; their gradients sum in ``.grad``
+    (float32 with float32 master weights, as the reference's float32 sum)
+    and the loss is their mean.  metrics: ce, aux."""
     model_fns = build_model(cfg)
-    lr_fn = cosine_schedule(base_lr, warmup, total)
     record = torch.profiler.record_function
 
     def loss_fn(model, batch):
         return _call_cast(model_fns.loss, model, ex, batch, ex)
 
-    def train_step(state: TrainState, batch):
-        params = dict(state.model.named_parameters())
+    def grad_step(model, batch):
+        params = dict(model.named_parameters())
         for p in params.values():
             p.grad = None
         if accum == 1:
             with record("train.forward"):
-                loss, metrics = loss_fn(state.model, batch)
+                loss, metrics = loss_fn(model, batch)
             with record("train.backward"):
                 loss.backward()
         else:
             loss = 0.0
             for mb in _microbatches(batch, accum):
                 with record("train.forward"):
-                    mloss, _ = loss_fn(state.model, mb)
+                    mloss, _ = loss_fn(model, mb)
                 with record("train.backward"):
                     mloss.backward()
                 loss = loss + mloss.detach()
@@ -104,12 +98,31 @@ def make_train_step(cfg: ModelConfig, ex: ExecConfig, *, base_lr=3e-4,
         missing = [n for n, p in params.items() if p.grad is None]
         if missing:
             raise RuntimeError(f"no gradient reached {missing}")
-        with record("train.optimizer"), torch.no_grad():
+        return loss, metrics
+
+    return grad_step
+
+
+def make_train_step(cfg: ModelConfig, ex: ExecConfig, *, base_lr=3e-4,
+                    warmup=100, total=10000, accum: int = 1):
+    """train_step(state, batch) -> (state, metrics): ``make_grad_step``'s
+    gradients, divided by ``accum``, then one AdamW update of the
+    parameters in place.  Each parameter's ``.grad`` keeps the step's
+    summed gradient until the next step; the state's m and v are updated
+    in place (``adamw_update_``).  metrics: loss, ce, aux, lr, grad_norm
+    (tensors where computed on the device, so that a step does not wait
+    for them)."""
+    grad_step = make_grad_step(cfg, ex, accum=accum)
+    lr_fn = cosine_schedule(base_lr, warmup, total)
+
+    def train_step(state: TrainState, batch):
+        loss, metrics = grad_step(state.model, batch)
+        params = dict(state.model.named_parameters())
+        with torch.profiler.record_function("train.optimizer"), \
+                torch.no_grad():
             grads = {n: p.grad if accum == 1 else p.grad / accum
                      for n, p in params.items()}
-            new, opt, om = adamw_update(params, grads, state.opt, lr_fn)
-            for n, p in params.items():
-                p.copy_(new[n])
+            opt, om = adamw_update_(params, grads, state.opt, lr_fn)
         metrics = {k: v.detach() if torch.is_tensor(v) else v
                    for k, v in dict(metrics, loss=loss, **om).items()}
         return TrainState(model=state.model, opt=opt), metrics

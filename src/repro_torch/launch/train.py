@@ -4,8 +4,13 @@
 ``python -m repro_torch.launch.train --arch tinyllama-1.1b`` trains on the
 GPU with float32 master weights and bfloat16 compute (the kernels in the
 forward); ``--device cpu`` trains on the CPU in float32 (the plain
-versions), ``--reduced`` the config's tiny version.  The families whose
-loss is ported train: dense and ssm (``mamba2-780m``).
+versions), ``--reduced`` the config's tiny version.  Every family trains:
+dense (``tinyllama-1.1b``), moe (``mixtral-8x7b``, with the router's aux
+loss), vlm (``llava-next-34b``, the loss masked over the prefix), hybrid
+(``zamba2-7b``), ssm (``mamba2-780m``) and encdec (``whisper-medium``:
+``--seq`` is the decoder's length; the encoder takes the config's
+``encoder_len`` frames).  The full configs past one card's memory train
+only at a cut depth, which ``chip_smoke.py`` sets.
 """
 from __future__ import annotations
 
@@ -37,12 +42,14 @@ def main(argv=None):
         "fault-tolerant loop are not ported yet (ROADMAP A8): every step "
         "draws a fresh synthetic batch from --seed + step.")
     ap.add_argument("--arch", default="tinyllama-1.1b",
-                    help="a dense (tinyllama-1.1b, ...) or SSM "
-                    "(mamba2-780m) arch")
+                    help="any arch of every family: tinyllama-1.1b, "
+                    "mixtral-8x7b, llava-next-34b, zamba2-7b, mamba2-780m, "
+                    "whisper-medium, ...")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--batch", type=int, default=8)
-    ap.add_argument("--seq", type=int, default=1024)
+    ap.add_argument("--seq", type=int, default=1024,
+                    help="tokens a sequence (encdec: the decoder's)")
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--accum", type=int, default=1)
     ap.add_argument("--seed", type=int, default=0)

@@ -7,8 +7,8 @@ encdec).
   decode_step(model, cache, tokens, pos, ex) -> (logits, cache)
   init_cache(batch, seq_len, ex) -> cache
   make_batch(seed, shape, ex, kind="prefill") -> synthetic batch ("train"
-      adds labels)
-  loss(model, batch, ex) -> (loss, {"ce", "aux"}) for dense and ssm
+      adds labels, and for a vlm the loss mask over its prefix)
+  loss(model, batch, ex) -> (loss, {"ce", "aux"})
 """
 from __future__ import annotations
 
@@ -31,10 +31,10 @@ _FAMILIES = {
     "encdec": (encdec.encdec_init, encdec.init_cache),
 }
 PORTED_FAMILIES = tuple(_FAMILIES)
-# family -> loss(model, batch, cfg, ex); the others' losses are later
-# slices of training: moe needs the router's aux loss, vlm the loss mask
-# over its prefix, hybrid and encdec their own loss functions
-_LOSSES = {"dense": transformer.lm_loss, "ssm": ssm_lm.ssm_lm_loss}
+# family -> loss(model, batch, cfg, ex)
+_LOSSES = {"dense": transformer.lm_loss, "moe": transformer.lm_loss,
+           "vlm": transformer.lm_loss, "hybrid": hybrid.hybrid_loss,
+           "ssm": ssm_lm.ssm_lm_loss, "encdec": encdec.encdec_loss}
 
 
 @dataclass(frozen=True)
@@ -72,10 +72,6 @@ def build_model(cfg: ModelConfig) -> ModelFns:
                             check_device(ex.device))
 
     def loss(model, batch, ex):
-        if cfg.family not in _LOSSES:
-            raise NotImplementedError(
-                f"the {cfg.family} family's loss ({cfg.name}) is a later "
-                f"slice of training; ported: {tuple(_LOSSES)}")
         return _LOSSES[cfg.family](model, batch, cfg, ex)
 
     def make_batch(seed, shape: ShapeConfig, ex, kind="prefill"):
@@ -84,7 +80,8 @@ def build_model(cfg: ModelConfig) -> ModelFns:
         # an encdec config's encoder frames (standing in for the audio
         # frontend) are standard normals from the same generator, in
         # compute dtype; "train" labels are drawn last, so the other
-        # tensors do not depend on the kind
+        # tensors do not depend on the kind; a vlm's "train" loss mask is
+        # 0 over its prefix positions and 1 elsewhere (the reference's)
         if kind not in ("prefill", "train"):
             raise ValueError(f"kind must be 'prefill' or 'train', got "
                              f"{kind!r}")
@@ -104,6 +101,10 @@ def build_model(cfg: ModelConfig) -> ModelFns:
         if kind == "train":
             labels = torch.randint(0, cfg.vocab, (b, s), generator=gen)
             batch["labels"] = labels.to(device)
+            if cfg.family == "vlm":
+                mask = torch.ones((b, s), dtype=torch.float32)
+                mask[:, :cfg.n_prefix_tokens] = 0.0
+                batch["loss_mask"] = mask.to(device)
         return batch
 
     return ModelFns(cfg=cfg, init=init, prefill=prefill,

@@ -106,3 +106,13 @@ def cross_entropy(logits, labels, *, logit_softcap=0.0, mask=None):
         return nll.mean()
     mask = mask.float()
     return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+
+
+def tied_head_loss(x, embed, batch):
+    """-> (loss, {"ce", "aux"}): the mean cross-entropy of the tied head's
+    logits ``x @ embed.T`` against ``batch["labels"]`` (over
+    ``batch["loss_mask"]`` where given); no aux loss (the reference's
+    ssm, hybrid and encdec losses)."""
+    ce = cross_entropy(x @ embed.T, batch["labels"],
+                       mask=batch.get("loss_mask"))
+    return ce, {"ce": ce, "aux": 0.0}

@@ -50,9 +50,7 @@ class EncDec(torch.nn.Module):
         self.enc_norm = torch.nn.Parameter(torch.empty(cfg.d_model, **kw))
         self.final_norm = torch.nn.Parameter(torch.empty(cfg.d_model, **kw))
 
-    @torch.no_grad()
-    def encode(self, frames, ex):
-        """frames: (B, encoder_len, D) stub embeddings -> (B, len, D)."""
+    def _encode(self, frames, ex):
         cfg, a = self.cfg, self.cfg.attn
         shape = tuple(frames.shape)
         if len(shape) != 3 or shape[1:] != (cfg.encoder_len, cfg.d_model):
@@ -69,8 +67,48 @@ class EncDec(torch.nn.Module):
                                           ex=ex, causal=False)
             x = x + att
             h = common.norm(x, blk.ln2, cfg.norm_eps)
-            x = x + blk.ffn(h, cfg)
+            x = x + blk.ffn(h, cfg)[0]
         return common.norm(x, self.enc_norm, cfg.norm_eps)
+
+    @torch.no_grad()
+    def encode(self, frames, ex):
+        """frames: (B, encoder_len, D) stub embeddings -> (B, len, D)."""
+        return self._encode(frames, ex)
+
+    def _dec_layers(self, x, enc, ex):
+        """Every decoder layer over the full sequence x (B, S, D) and the
+        encoder output ``enc``, as a generator of (layer index, x after it,
+        its self (k, v) (B, Hkv, S, hd), its cross (k, v) (B, Hkv,
+        encoder_len, hd))."""
+        cfg, a = self.cfg, self.cfg.attn
+        rope = common.rope_angles(torch.arange(x.shape[1], device=x.device),
+                                  a.head_dim, a.rope_theta)
+        for i, blk in enumerate(self.dec_layers):
+            h = common.norm(x, blk.ln1, cfg.norm_eps)
+            att, kv = attention.attn_train(
+                blk.attn, h, a, window=None, norm_eps=cfg.norm_eps,
+                rope=rope, ex=ex)
+            x = x + att
+            h = common.norm(x, blk.ln_x, cfg.norm_eps)
+            xa, xkv = attention.attn_train(
+                blk.xattn, h, a, window=None, norm_eps=cfg.norm_eps,
+                rope=None, ex=ex, kv_source=enc)
+            x = x + xa
+            h = common.norm(x, blk.ln2, cfg.norm_eps)
+            x = x + blk.ffn(h, cfg)[0]
+            yield i, x, kv, xkv
+
+    def hidden(self, tokens, encoder_embeds, ex):
+        """The full-sequence forward without a cache (the reference's
+        ``encdec_loss`` up to its head): tokens (B, S) and encoder_embeds
+        (B, encoder_len, D) -> the decoder's final-normed hidden (B, S,
+        D): the encoder, then causal self-attention and cross-attention
+        over the encoder output (Sq != Sk) in every decoder layer."""
+        enc = self._encode(encoder_embeds, ex)
+        x = self.embed[tokens].to(ex.compute_dtype)
+        for _, x, _, _ in self._dec_layers(x, enc, ex):
+            pass
+        return common.norm(x, self.final_norm, self.cfg.norm_eps)
 
     @torch.no_grad()
     def prefill(self, tokens, ex, cache=None, encoder_embeds=None):
@@ -80,27 +118,13 @@ class EncDec(torch.nn.Module):
         self K/V in place at [0, S), and the cross K/V whole."""
         if encoder_embeds is None:
             raise ValueError("an encdec prefill needs encoder_embeds")
-        cfg, a = self.cfg, self.cfg.attn
+        cfg = self.cfg
         b, s = tokens.shape
         if cache is None:
             cache = init_cache(cfg, b, s, ex.compute_dtype, tokens.device)
         enc = self.encode(encoder_embeds, ex)
         x = self.embed[tokens].to(ex.compute_dtype)
-        rope = common.rope_angles(torch.arange(s, device=tokens.device),
-                                  a.head_dim, a.rope_theta)
-        for i, blk in enumerate(self.dec_layers):
-            h = common.norm(x, blk.ln1, cfg.norm_eps)
-            att, (k, v) = attention.attn_train(
-                blk.attn, h, a, window=None, norm_eps=cfg.norm_eps,
-                rope=rope, ex=ex)
-            x = x + att
-            h = common.norm(x, blk.ln_x, cfg.norm_eps)
-            xa, (xk, xv) = attention.attn_train(
-                blk.xattn, h, a, window=None, norm_eps=cfg.norm_eps,
-                rope=None, ex=ex, kv_source=enc)
-            x = x + xa
-            h = common.norm(x, blk.ln2, cfg.norm_eps)
-            x = x + blk.ffn(h, cfg)
+        for i, x, (k, v), (xk, xv) in self._dec_layers(x, enc, ex):
             cache["k"][i, :, :, :s] = k
             cache["v"][i, :, :, :s] = v
             cache["xk"][i] = xk
@@ -126,9 +150,18 @@ class EncDec(torch.nn.Module):
             x = x + attention.cross_decode(blk.xattn, h, cache["xk"][i],
                                            cache["xv"][i], a)
             h = common.norm(x, blk.ln2, cfg.norm_eps)
-            x = x + blk.ffn(h, cfg)
+            x = x + blk.ffn(h, cfg)[0]
         x = common.norm(x, self.final_norm, cfg.norm_eps)
         return x[:, 0] @ self.embed.T, cache
+
+
+def encdec_loss(model: EncDec, batch, cfg: ModelConfig, ex):
+    """-> ``common.tied_head_loss`` of the decoder's hidden states (the
+    reference's ``encdec_loss``)."""
+    del cfg
+    return common.tied_head_loss(
+        model.hidden(batch["tokens"], batch["encoder_embeds"], ex),
+        model.embed, batch)
 
 
 def encdec_init(cfg: ModelConfig, ex: common.ExecConfig, seed: int = 0

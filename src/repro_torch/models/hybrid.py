@@ -46,6 +46,37 @@ class Hybrid(torch.nn.Module):
         h = common.norm(x, blk.ln2, cfg.norm_eps)
         return x + common.mlp_apply(blk.mlp, h, cfg.gated_mlp)
 
+    def _layers(self, x, ex):
+        """Every SSM layer over the full sequence x (B, S, D), each
+        followed by the shared block where the schedule applies it, as a
+        generator of (application index or None, x after them, the
+        block's (k, v) (B, Hkv, S, hd) or None)."""
+        cfg, a = self.cfg, self.cfg.attn
+        rope = common.rope_angles(torch.arange(x.shape[1], device=x.device),
+                                  a.head_dim, a.rope_theta)
+        for i, app in self._schedule():
+            lyr = self.layers[i]
+            h = common.norm(x, lyr.ln, cfg.norm_eps)
+            x = x + ssm.ssm_train(lyr.ssm, h, cfg, ex)
+            kv = None
+            if app is not None:
+                h = common.norm(x, self.shared.ln1, cfg.norm_eps)
+                att, kv = attention.attn_train(
+                    self.shared.attn, h, a, window=None,
+                    norm_eps=cfg.norm_eps, rope=rope, ex=ex)
+                x = self._shared_mlp(x + att)
+            yield app, x, kv
+
+    def hidden(self, tokens, ex):
+        """The full-sequence forward without a cache (the reference's
+        ``hybrid_hidden``): tokens (B, S) -> final-normed hidden (B, S,
+        D).  The shared block's parameters take gradient from every
+        application."""
+        x = self.embed[tokens].to(ex.compute_dtype)
+        for _, x, _ in self._layers(x, ex):
+            pass
+        return common.norm(x, self.final_norm, self.cfg.norm_eps)
+
     @torch.no_grad()
     def prefill(self, tokens, ex, cache=None):
         """tokens: (B, S) -> (last-position logits (B, V), cache).
@@ -53,25 +84,15 @@ class Hybrid(torch.nn.Module):
         ``cache``: None allocates one of S positions; a larger cache from
         ``init_cache`` receives each application's K/V in place at [0, S).
         """
-        cfg, a = self.cfg, self.cfg.attn
+        cfg = self.cfg
         b, s = tokens.shape
         if cache is None:
             cache = init_cache(cfg, b, s, ex.compute_dtype, tokens.device)
         x = self.embed[tokens].to(ex.compute_dtype)
-        rope = common.rope_angles(torch.arange(s, device=tokens.device),
-                                  a.head_dim, a.rope_theta)
-        for i, app in self._schedule():
-            lyr = self.layers[i]
-            h = common.norm(x, lyr.ln, cfg.norm_eps)
-            x = x + ssm.ssm_train(lyr.ssm, h, cfg, ex)
+        for app, x, kv in self._layers(x, ex):
             if app is not None:
-                h = common.norm(x, self.shared.ln1, cfg.norm_eps)
-                att, (k, v) = attention.attn_train(
-                    self.shared.attn, h, a, window=None,
-                    norm_eps=cfg.norm_eps, rope=rope, ex=ex)
-                x = self._shared_mlp(x + att)
-                cache["k"][app, :, :, :s] = k
-                cache["v"][app, :, :, :s] = v
+                cache["k"][app, :, :, :s] = kv[0]
+                cache["v"][app, :, :, :s] = kv[1]
         # The reference's prefill returns the SSM and conv states of
         # hybrid_init_cache, i.e. zeros (repro/models/hybrid.py:122-130),
         # so decode starts from an empty state; the port does the same.
@@ -102,6 +123,14 @@ class Hybrid(torch.nn.Module):
                 x = self._shared_mlp(x + att)
         x = common.norm(x, self.final_norm, cfg.norm_eps)
         return x[:, 0] @ self.embed.T, cache
+
+
+def hybrid_loss(model: Hybrid, batch, cfg: ModelConfig, ex):
+    """-> ``common.tied_head_loss`` of the hidden states (the reference's
+    ``hybrid_loss``)."""
+    del cfg
+    return common.tied_head_loss(model.hidden(batch["tokens"], ex),
+                                 model.embed, batch)
 
 
 def hybrid_init(cfg: ModelConfig, ex: common.ExecConfig, seed: int = 0

@@ -1,12 +1,13 @@
 """Mixture-of-Experts layer: top-k router + capacity-padded dispatch
-(counterpart of ``repro/models/moe.py``, forward only).
+(counterpart of ``repro/models/moe.py``).
 
 Tokens are scattered into (E, capacity) buckets by their rank within
 their expert, as in the reference.  The buckets, flattened to
 (E * capacity, D), are the grouped-matmul kernel's own layout: every run
 of ``block_t`` rows belongs to one expert, so the expert FFN is three
 ``ops.moe_gmm`` calls where the reference writes three batched einsums.
-The reference's aux loss trains the router; serving does not need it.
+Training also takes the router's Switch load-balance loss
+(``aux_loss``); serving does not compute it.
 """
 from __future__ import annotations
 
@@ -43,20 +44,30 @@ def block_t_for(cap: int) -> int:
 
 
 def router_topk(logits, m: MoEConfig):
-    """logits: (T, E) fp32 -> (weights (T, k), ids (T, k))."""
+    """logits: (T, E) fp32 -> (weights (T, k), ids (T, k), probs (T, E))."""
     probs = torch.softmax(logits, dim=-1)
     weights, ids = torch.topk(probs, m.top_k, dim=-1)
     weights = weights / torch.clamp(weights.sum(-1, keepdim=True), min=1e-9)
-    return weights, ids
+    return weights, ids, probs
+
+
+def aux_loss(probs, ids):
+    """The Switch load-balance loss of one router: E x the sum over
+    experts of the mean router probability times the fraction of tokens
+    whose first choice it is; its gradient flows through ``probs``."""
+    e = probs.shape[-1]
+    routed = F.one_hot(ids[:, 0], e).to(probs.dtype)
+    return e * torch.sum(probs.mean(0) * routed.mean(0))
 
 
 def route(x, moe: MoE, m: MoEConfig):
     """x: (T, D) -> (weights (T, k) fp32, ids (T, k), flat (T*k,) row of
     each (token, choice) in the (E * cap + 1, D) buckets, keep (T*k,),
-    cap).  Dropped choices point at the last row, which stays zeros."""
+    cap, probs (T, E)).  Dropped choices point at the last row, which
+    stays zeros."""
     t = x.shape[0]
     logits = moe.router(x).float()
-    weights, ids = router_topk(logits, m)
+    weights, ids, probs = router_topk(logits, m)
     cap = capacity(t, m)
     e = m.n_experts
     flat_e = ids.reshape(-1)
@@ -71,19 +82,21 @@ def route(x, moe: MoE, m: MoEConfig):
     ranks[sort_idx] = rank_sorted
     keep = ranks < cap
     flat = torch.where(keep, flat_e * cap + ranks, e * cap)
-    return weights, ids, flat, keep, cap
+    return weights, ids, flat, keep, cap, probs
 
 
-def moe_apply(moe: MoE, x, m: MoEConfig):
-    """x: (B, S, D) -> y (B, S, D)."""
+def moe_apply(moe: MoE, x, m: MoEConfig, *, with_aux: bool = False):
+    """x: (B, S, D) -> (y (B, S, D), the router's aux loss with
+    ``with_aux``, else 0.0: serving does not compute it)."""
     b, s, d = x.shape
     t, e = b * s, m.n_experts
     xf = x.reshape(t, d)
-    weights, _, flat, keep, cap = route(xf, moe, m)
+    weights, ids, flat, keep, cap, probs = route(xf, moe, m)
     tok_of = torch.arange(t, device=x.device).repeat_interleave(m.top_k)
 
     # dispatch: every kept (expert, slot) is written once; the dropped
-    # choices all land in the one row past the buckets
+    # choices all land in the one row past the buckets, which is sliced
+    # off, so their gradient is zero
     buckets = torch.zeros((e * cap + 1, d), dtype=x.dtype, device=x.device)
     buckets[flat] = xf[tok_of]
     xb = buckets[:e * cap]
@@ -100,4 +113,4 @@ def moe_apply(moe: MoE, x, m: MoEConfig):
     gathered = out_b[flat] * (weights.reshape(-1, 1)
                               * keep[:, None]).to(out_b.dtype)
     y = gathered.reshape(t, m.top_k, d).sum(1)
-    return y.reshape(b, s, d)
+    return y.reshape(b, s, d), aux_loss(probs, ids) if with_aux else 0.0

@@ -75,13 +75,10 @@ class SSMLM(torch.nn.Module):
 
 
 def ssm_lm_loss(model: SSMLM, batch, cfg: ModelConfig, ex):
-    """-> (loss, {"ce", "aux"}): the mean cross-entropy of the tied head's
-    logits against ``batch["labels"]``; no aux loss."""
+    """-> ``common.tied_head_loss`` of the hidden states."""
     del cfg
-    x = model.hidden(batch["tokens"], ex)
-    ce = common.cross_entropy(x @ model.embed.T, batch["labels"],
-                              mask=batch.get("loss_mask"))
-    return ce, {"ce": ce, "aux": 0.0}
+    return common.tied_head_loss(model.hidden(batch["tokens"], ex),
+                                 model.embed, batch)
 
 
 def ssm_lm_init(cfg: ModelConfig, ex: common.ExecConfig, seed: int = 0

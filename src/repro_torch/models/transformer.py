@@ -26,10 +26,12 @@ class Block(torch.nn.Module):
         else:
             self.mlp = common.MLP(cfg.d_model, cfg.d_ff, cfg.gated_mlp, **kw)
 
-    def ffn(self, h, cfg: ModelConfig):
+    def ffn(self, h, cfg: ModelConfig, with_aux: bool = False):
+        """-> (the MLP's or the MoE's output, the router's aux loss with
+        ``with_aux`` and experts, else 0.0)."""
         if cfg.moe is not None:
-            return moe.moe_apply(self.moe, h, cfg.moe)
-        return common.mlp_apply(self.mlp, h, cfg.gated_mlp)
+            return moe.moe_apply(self.moe, h, cfg.moe, with_aux=with_aux)
+        return common.mlp_apply(self.mlp, h, cfg.gated_mlp), 0.0
 
 
 class Transformer(torch.nn.Module):
@@ -74,9 +76,10 @@ class Transformer(torch.nn.Module):
         return torch.cat([prefix_embeds.to(ex.compute_dtype),
                           x[:, shape[1]:]], dim=1)
 
-    def _layers(self, x, ex):
+    def _layers(self, x, ex, with_aux: bool = False):
         """Every layer over the full sequence x (B, S, D), as a generator
-        of (layer index, x after it, its (k, v) (B, Hkv, S, hd))."""
+        of (layer index, x after it, its (k, v) (B, Hkv, S, hd), its aux
+        loss: ``Block.ffn``'s)."""
         cfg, a = self.cfg, self.cfg.attn
         rope = common.rope_angles(torch.arange(x.shape[1], device=x.device),
                                   a.head_dim, a.rope_theta)
@@ -88,18 +91,20 @@ class Transformer(torch.nn.Module):
                 norm_eps=cfg.norm_eps, rope=rope, ex=ex)
             x = x + att
             h = common.norm(x, blk.ln2, cfg.norm_eps)
-            x = x + blk.ffn(h, cfg)
-            yield i, x, kv
+            y, aux = blk.ffn(h, cfg, with_aux)
+            x = x + y
+            yield i, x, kv, aux
 
     def hidden(self, tokens, ex, prefix_embeds=None):
         """The full-sequence forward without a cache (the reference's
         ``lm_hidden``): tokens (B, S) -> (final-normed hidden (B, S, D),
-        aux loss).  The aux loss is 0.0: the MoE router's is not ported
-        (``api.build_model(...).loss`` raises for MoE)."""
+        aux loss): the MoE routers' aux losses summed over the layers, 0.0
+        without experts."""
         x = self._embed(tokens, ex, prefix_embeds)
-        for _, x, _ in self._layers(x, ex):
-            pass
-        return common.norm(x, self.final_norm, self.cfg.norm_eps), 0.0
+        total = 0.0
+        for _, x, _, aux in self._layers(x, ex, with_aux=True):
+            total = total + aux
+        return common.norm(x, self.final_norm, self.cfg.norm_eps), total
 
     @torch.no_grad()
     def prefill(self, tokens, ex, cache=None, prefix_embeds=None):
@@ -119,7 +124,7 @@ class Transformer(torch.nn.Module):
             cache = init_cache(cfg, b, s, ex.compute_dtype, tokens.device)
         clen = cache_len(cfg, s)
         x = self._embed(tokens, ex, prefix_embeds)
-        for i, x, (k, v) in self._layers(x, ex):
+        for i, x, (k, v), _ in self._layers(x, ex):
             cache["k"][i, :, :, :clen] = k[:, :, s - clen:]
             cache["v"][i, :, :, :clen] = v[:, :, s - clen:]
         x = common.norm(x, self.final_norm, cfg.norm_eps)
@@ -143,7 +148,7 @@ class Transformer(torch.nn.Module):
                 norm_eps=cfg.norm_eps, rope=rope,
                 rolling=attention.is_rolling(a))
             h = common.norm(x, blk.ln2, cfg.norm_eps)
-            x = x + blk.ffn(h, cfg)
+            x = x + blk.ffn(h, cfg)[0]
         x = common.norm(x, self.final_norm, cfg.norm_eps)
         logits = self._unembed(x[:, 0])
         if cfg.logit_softcap:

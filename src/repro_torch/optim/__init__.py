@@ -1,3 +1,4 @@
 from repro_torch.optim.adamw import (AdamWState, adamw_init,  # noqa: F401
-                                     adamw_update, clip_by_global_norm,
+                                     adamw_update, adamw_update_,
+                                     clip_by_global_norm,
                                      cosine_schedule)

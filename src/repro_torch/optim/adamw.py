@@ -36,33 +36,60 @@ def cosine_schedule(base_lr: float, warmup: int, total: int):
     return lr
 
 
+def _global_norm_scale(grads: dict, max_norm: float):
+    """-> (the global L2 norm of ``grads``, a float32 0-d tensor; the
+    factor that clips it to at most ``max_norm``)."""
+    gnorm = torch.stack([torch.sum(g.float() ** 2)
+                         for g in grads.values()]).sum().sqrt()
+    return gnorm, torch.clamp(max_norm / torch.clamp(gnorm, min=1e-12),
+                              max=1.0)
+
+
 def clip_by_global_norm(grads: dict, max_norm: float):
     """-> (grads scaled to a global L2 norm of at most ``max_norm``, each
     in its own dtype; the norm before clipping, a float32 0-d tensor)."""
-    gnorm = torch.stack([torch.sum(g.float() ** 2)
-                         for g in grads.values()]).sum().sqrt()
-    scale = torch.clamp(max_norm / torch.clamp(gnorm, min=1e-12), max=1.0)
+    gnorm, scale = _global_norm_scale(grads, max_norm)
     return {n: (g * scale).to(g.dtype) for n, g in grads.items()}, gnorm
 
 
-def adamw_update(params: dict, grads: dict, state: AdamWState, lr_fn, *,
-                 b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1,
-                 max_grad_norm=1.0):
-    """-> (new params, new state, {"lr", "grad_norm"}).  Weight decay
-    applies to every parameter, as in the reference."""
-    grads, gnorm = clip_by_global_norm(grads, max_grad_norm)
+def adamw_update_(params: dict, grads: dict, state: AdamWState, lr_fn, *,
+                  b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1,
+                  max_grad_norm=1.0):
+    """One AdamW update in place: every parameter and its m and v are
+    overwritten -> (the state one step on, holding the same m and v
+    tensors; {"lr", "grad_norm"}).  It clips each gradient as it reaches
+    it and holds one parameter's temporaries at a time, where a copy of
+    the whole state would double its memory (a 3 B-parameter state is
+    ~50 GB in float32).  The arithmetic is ``adamw_update``'s, operation
+    for operation.  Weight decay applies to every parameter, as in the
+    reference."""
+    gnorm, scale = _global_norm_scale(grads, max_grad_norm)
     step = state.step + 1
     lr = lr_fn(step)
     b1t = 1.0 - b1 ** step
     b2t = 1.0 - b2 ** step
-    new_p, new_m, new_v = {}, {}, {}
     for n, p in params.items():
-        g32 = grads[n].float()
-        m = b1 * state.m[n] + (1 - b1) * g32
-        v = b2 * state.v[n] + (1 - b2) * g32 * g32
+        g32 = (grads[n] * scale).to(grads[n].dtype).float()
+        m, v = state.m[n], state.v[n]
+        m.mul_(b1).add_((1 - b1) * g32)
+        v.mul_(b2).add_(((1 - b2) * g32).mul_(g32))
+        del g32
         p32 = p.float()
-        upd = (m / b1t) / (torch.sqrt(v / b2t) + eps) + weight_decay * p32
-        new_p[n] = (p32 - lr * upd).to(p.dtype)
-        new_m[n], new_v[n] = m, v
-    return new_p, AdamWState(step=step, m=new_m, v=new_v), \
+        # (m / b1t) / (sqrt(v / b2t) + eps) + weight_decay * p32
+        upd = torch.div(m, b1t).div_(torch.div(v, b2t).sqrt_().add_(eps))
+        upd.add_(weight_decay * p32)
+        p.copy_(p32.sub_(upd.mul_(lr)))
+    return AdamWState(step=step, m=state.m, v=state.v), \
         {"lr": lr, "grad_norm": gnorm}
+
+
+def adamw_update(params: dict, grads: dict, state: AdamWState, lr_fn,
+                 **kw):
+    """-> (new params, new state, {"lr", "grad_norm"}): ``adamw_update_``
+    on copies, leaving ``params`` and ``state`` as they are."""
+    new_p = {n: p.detach().clone() for n, p in params.items()}
+    new = AdamWState(step=state.step,
+                     m={n: t.clone() for n, t in state.m.items()},
+                     v={n: t.clone() for n, t in state.v.items()})
+    new, info = adamw_update_(new_p, grads, new, lr_fn, **kw)
+    return new_p, new, info

@@ -250,9 +250,9 @@ def test_moe_layer_matches_jax(case):
         **{n: torch.from_numpy(np_params[n]) for n in ("w1", "w2", "w3")}})
     xt = torch.from_numpy(x)
     with torch.no_grad():
-        _, t_ids, _, keep, cap = port_moe.route(xt.reshape(b * s, d), layer,
-                                                m)
-        y_t = port_moe.moe_apply(layer, xt, m)
+        _, t_ids, _, keep, cap, _ = port_moe.route(xt.reshape(b * s, d),
+                                                   layer, m)
+        y_t, _ = port_moe.moe_apply(layer, xt, m)
     np.testing.assert_array_equal(t_ids.numpy(), np.asarray(j_ids))
     assert bool((~keep).any()) == (case == "biased_drops"), cap
     np.testing.assert_allclose(y_t.numpy(), np.asarray(y_j), rtol=1e-4,

@@ -176,19 +176,6 @@ def test_train_batch_adds_labels_and_keeps_the_prompt():
         fns.make_batch(3, shape, ex, kind="eval")
 
 
-@pytest.mark.parametrize("arch", ["qwen3_moe_235b_a22b", "llava_next_34b",
-                                  "zamba2_7b", "whisper_medium"])
-def test_unported_family_loss_raises(arch):
-    cfg = get_config(arch).reduced()
-    ex = ExecConfig(device="cpu")
-    fns = build_model(cfg)
-    model = fns.init(0, ex)
-    batch = fns.make_batch(0, ShapeConfig("t", "train", 16, 2), ex,
-                           kind="train")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        fns.loss(model, batch, ex)
-
-
 def test_train_main_without_gpu_raises(monkeypatch):
     from repro_torch.launch.train import main
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -222,3 +209,38 @@ def test_clip_and_schedule_match_reference():
     for step in (0, 1, 5, 10, 11, 50, 100, 150):
         np.testing.assert_allclose(t(step), float(j(jnp.int32(step))),
                                    rtol=1e-6, atol=1e-12)
+
+
+def test_adamw_in_place_matches_the_functional_update():
+    """``adamw_update_`` (the train step's, in place) gives the functional
+    ``adamw_update``'s parameters, m, v, lr and norm bit for bit over
+    three steps, clipped or not, float32 and bf16 parameters; the
+    functional form leaves its inputs as they were."""
+    from repro_torch.optim import (adamw_update, adamw_update_,
+                                   cosine_schedule)
+    gen = torch.Generator().manual_seed(0)
+    params = {f"w{i}": torch.randn(37, 53, generator=gen) * 0.1
+              for i in range(3)}
+    params["b"] = torch.randn(64, generator=gen).to(torch.bfloat16)
+    for size in (0.01, 0.5):    # under, over the clipping norm
+        grads = {n: (torch.randn(p.shape, generator=gen) * size).to(p.dtype)
+                 for n, p in params.items()}
+        sched = cosine_schedule(5e-3, 2, 10)
+        fp, fs = dict(params), adamw_init(params)
+        ip, ist = ({n: p.clone() for n, p in params.items()},
+                   adamw_init(params))
+        for _ in range(3):
+            fp, fs, finfo = adamw_update(fp, grads, fs, sched)
+            ist, iinfo = adamw_update_(ip, grads, ist, sched)
+            assert finfo["lr"] == iinfo["lr"] and fs.step == ist.step
+            assert torch.equal(finfo["grad_norm"], iinfo["grad_norm"])
+            for n in params:
+                assert torch.equal(fp[n], ip[n]), n
+                assert torch.equal(fs.m[n], ist.m[n]), n
+                assert torch.equal(fs.v[n], ist.v[n]), n
+        kept = {n: p.clone() for n, p in params.items()}
+        state = adamw_init(params)
+        adamw_update(params, grads, state, sched)
+        assert all(torch.equal(kept[n], params[n]) for n in params)
+        assert all(not state.m[n].any() and not state.v[n].any()
+                   for n in params)
