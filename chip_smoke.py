@@ -98,6 +98,28 @@ Phases, in order; any failure raises and exits non-zero:
    update against the CPU's AdamW on the card's gradients), and each
    gradient's bf16 error against its device's float32 one, the card's
    (the kernels) within twice the CPU's (the plain versions) + 1e-3.
+9. validate - ``python -m repro_torch.cli validate`` over the nine
+   committed scenarios (top 4; gpipe, 1f1b, interleaved) on the CPU and
+   on the card: identical rows and no violation; each scenario's 8
+   pipelined records compiled by ``compile_batch`` and replayed on the
+   card's wavefront, each held against the scalar engine's replay
+   (gpipe and 1f1b within 5%, interleaved printed); ``timeline`` and a
+   study with ``--trace`` on the card, each trace checked by
+   ``validate_chrome_trace`` (the study's holds the ``study.*`` stage
+   spans), with the device tracks' busy and idle; the wavefront's
+   launches counted (every count set to 0 just before the card's runs).
+10. resume - TinyLlama-1.1B at full width, 4 of 22 layers, batch 8 x
+   1024, float32 master weights and bf16 compute, through
+   ``launch.train``'s pieces (``DataPipeline``, ``CheckpointManager``,
+   ``FaultTolerantLoop``): 8 steps straight with a checkpoint every 4
+   (the launches counted); step 8's COMMITTED marker removed, as by a
+   crash mid-write; a fresh state from another seed resumed at step 4
+   must equal the saved state bit for bit (parameters, m, v, step, the
+   pipeline's seed and step) and run to 8 with the straight run's
+   losses; then SIGTERM at step 2 of a third run must end it at step 2
+   with a committed checkpoint.  Prints the step ms with and without a
+   write in flight, each write's seconds and GB/s and the straggler
+   steps; ``build/ckpt_smoke`` is deleted at the end.
 
 The last lines are the card's name and power limit (nvidia-smi), one JSON
 line ``{"kernels": [...]}`` and ``{"ok": true, "device": {...}}``.
@@ -107,9 +129,11 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import os
 import pathlib
 import re
 import shutil
+import signal
 import subprocess
 import sys
 import time
@@ -1648,6 +1672,8 @@ TRAIN_PATHS = (
     # runs 2 + 2 layers
     ("whisper-medium", "train_whisper", None, WHISPER_PROMPT, 2, 256),
 )
+# every train batch comes from data.DataPipeline, the generator
+# launch.train trains on (a vlm's loss mask in the compute dtype)
 TRAIN_BATCH = SERVE_BATCH
 TRAIN_STATE_BYTES_PER_PARAM = 18
 TRAIN_WARMUP, TRAIN_TIMED = 3, 10
@@ -1890,6 +1916,7 @@ def _train_check(arch: str, depth: int, seq: int):
     no update) keeps its errors only."""
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import DataPipeline
     from repro_torch.launch.train import train_exec_config
     from repro_torch.models import build_model
     from repro_torch.optim import adamw_init, adamw_update, cosine_schedule
@@ -1913,7 +1940,7 @@ def _train_check(arch: str, depth: int, seq: int):
                                  compute_dtype=dt)
         if dt == FP64:
             ex = dataclasses.replace(ex, param_dtype=dt)
-        batch = fns.make_batch(SEED + 7, shape, ex, kind="train")
+        batch = DataPipeline(cfg, shape, SEED + 7, ex=ex).batch_at(0)
         t0 = time.perf_counter()
         out = _train_run(cfg, ex, source, batch, update=dt != BF16,
                          **LEARN_LR)
@@ -2035,9 +2062,9 @@ def phase_train(arch: str, depth, seq: int, check_depth: int,
     Returns the counted step's launches."""
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import DataPipeline
     from repro_torch.launch.steps import init_train_state, make_train_step
     from repro_torch.launch.train import train_exec_config
-    from repro_torch.models import build_model
 
     t_phase = time.perf_counter()
     cfg = get_config(arch)
@@ -2045,10 +2072,9 @@ def phase_train(arch: str, depth, seq: int, check_depth: int,
     if depth is not None:
         cfg = dataclasses.replace(cfg, n_layers=depth)
     ex = train_exec_config(cfg, torch.device("cuda"))
-    fns = build_model(cfg)
     shape = ShapeConfig("train", "train", seq, TRAIN_BATCH)
-    batches = [fns.make_batch(SEED + i, shape, ex, kind="train")
-               for i in range(TRAIN_WARMUP + TRAIN_TIMED)]
+    pipe = DataPipeline(cfg, shape, SEED, ex=ex)
+    batches = [pipe.batch_at(i) for i in range(TRAIN_WARMUP + TRAIN_TIMED)]
     state = init_train_state(cfg, ex, SEED)
     step = make_train_step(cfg, ex)
     n_params = sum(p.numel() for p in state.model.parameters())
@@ -2117,7 +2143,7 @@ def phase_train(arch: str, depth, seq: int, check_depth: int,
     # the learning check: one fixed batch, the substrate test's schedule
     state = init_train_state(cfg, ex, SEED)
     step = make_train_step(cfg, ex, **LEARN_LR)
-    batch = fns.make_batch(SEED, shape, ex, kind="train")
+    batch = pipe.batch_at(0)
     metrics = []
     for _ in range(LEARN_STEPS):
         state, m = step(state, batch)
@@ -2139,6 +2165,352 @@ def phase_train(arch: str, depth, seq: int, check_depth: int,
     _train_check(arch, check_depth, check_seq)
     log("train", f"{cfg.name}: phase wall {time.perf_counter() - t_phase:.1f}"
         " s")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# 9. validate: the fidelity harness, the wavefront against the scalar
+# engine, timeline and --trace
+# ---------------------------------------------------------------------------
+VALIDATE_OUT = ROOT / "build" / "fidelity_h100.json"
+VALIDATE_CPU_OUT = ROOT / "build" / "fidelity_cpu.json"
+VALIDATE_SCHEDULES = ("gpipe", "1f1b", "interleaved")
+# the card's wavefront against the scalar engine, gpipe and 1f1b: the
+# bound of the reference's test_batch_replay_matches_scalar; interleaved
+# is printed, not gated (ROADMAP C8)
+WAVEFRONT_ENGINE_RTOL = 0.05
+PIPELINED_TOP = 8        # records a scenario (obs/bench.pipelined_records)
+TIMELINE_OUT = ROOT / "build" / "timeline_h100.json"
+STUDY_TRACE_OUT = ROOT / "build" / "trace_study.json"
+STUDY_STAGE_SPANS = ("study.run", "study.scan", "study.event_rerank",
+                     "study.refine", "study.validate_top")
+
+
+def _wavefront_vs_engine(scenarios):
+    """Each scenario's pipelined records compiled by ``compile_batch`` and
+    replayed on the card's wavefront, each row held against the scalar
+    engine's replay of ``compile_step``'s program -> worst relative gap
+    by schedule."""
+    from repro_torch.api import Scenario, Study
+    from repro_torch.events import compile_batch, compile_step, replay
+    from repro_torch.obs.bench import pipelined_records
+    worst = {sched: 0.0 for sched in VALIDATE_SCHEDULES}
+    rows = 0
+    for path in scenarios:
+        sc = Scenario.load(path)
+        res = Study(sc).run(device="cuda")
+        w, hw, recs = pipelined_records(sc, res, PIPELINED_TOP)
+        check(len(recs) > 0, f"validate {sc.name}: pipelined records")
+        for sched in VALIDATE_SCHEDULES:
+            cb = compile_batch(w, [r[0] for r in recs], [r[1] for r in recs],
+                               fabric=[r[3] for r in recs],
+                               topos=[r[2] for r in recs], reuse=sc.reuse,
+                               hw=hw, schedule=sched, device="cuda")
+            out = cb.replay(device="cuda")
+            gaps = []
+            for j, (s, mcm, topo, fabric) in enumerate(recs):
+                if not cb.feasible[j]:
+                    continue
+                ev = replay(compile_step(w, s, mcm, fabric=fabric, topo=topo,
+                                         reuse=sc.reuse, hw=hw,
+                                         schedule=sched))
+                gaps.append(abs(float(out["step_time"][j]) - ev.step_time)
+                            / ev.step_time)
+            check(len(gaps) > 0 and all(math.isfinite(g) for g in gaps),
+                  f"validate {sc.name} {sched}: finite replays")
+            rows += len(gaps)
+            worst[sched] = max(worst[sched], max(gaps))
+            if sched != "interleaved":
+                check(max(gaps) <= WAVEFRONT_ENGINE_RTOL,
+                      f"validate {sc.name} {sched}: the card's wavefront "
+                      f"{max(gaps):.4f} relative from the scalar engine "
+                      f"(tol {WAVEFRONT_ENGINE_RTOL})")
+        log("validate", {"scenario": sc.name, "pipelined_records": [
+            [r[0].pp, r[0].n_micro] for r in recs]})
+    return worst, rows
+
+
+def _report_rows(report) -> dict:
+    return {b["scenario"]: (b["scenario_hash"], b["n_points"], b["rows"])
+            for b in report["scenarios"]}
+
+
+def phase_validate():
+    """``cli validate`` over the committed scenarios on the CPU and on the
+    card (identical rows, no violation); the card's wavefront against the
+    scalar engine on each scenario's pipelined records; ``timeline`` and a
+    study with ``--trace`` on the card, their traces checked.  Returns the
+    launches of the card's runs (every count set to 0 just before)."""
+    from repro_torch import cli
+    from repro_torch.obs import track_idle, validate_chrome_trace
+    t_phase = time.perf_counter()
+    scenarios = sorted(str(p) for p in (ROOT / "scenarios").glob("*.json"))
+    check(len(scenarios) == 9, f"validate: {len(scenarios)} committed "
+          f"scenarios, expected 9")
+    args = ["validate", *scenarios, "--top", "4", "--schedules",
+            ",".join(VALIDATE_SCHEDULES)]
+    t0 = time.perf_counter()
+    rc = cli.main(args + ["--device", "cpu", "--out", str(VALIDATE_CPU_OUT)])
+    cpu_s = time.perf_counter() - t0
+    check(rc == 0, f"validate on the CPU exited {rc}")
+    mods = _kernel_modules()
+    for m in mods.values():
+        m.launches = 0
+    t0 = time.perf_counter()
+    rc = cli.main(args + ["--device", "cuda", "--out", str(VALIDATE_OUT)])
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    check(rc == 0, f"validate on the card exited {rc}")
+    card = json.loads(VALIDATE_OUT.read_text())
+    cpu = json.loads(VALIDATE_CPU_OUT.read_text())
+    check(card["device"] == "cuda" and cpu["device"] == "cpu",
+          "validate: the reports name their devices")
+    check(card["n_violations"] == 0 and cpu["n_violations"] == 0,
+          f"validate: {card['n_violations']} violations on the card, "
+          f"{cpu['n_violations']} on the CPU")
+    check(card["n_rows"] == cpu["n_rows"] > 0
+          and _report_rows(card) == _report_rows(cpu),
+          "validate: the card's report has the CPU's rows")
+    t0 = time.perf_counter()
+    worst, n_rows = _wavefront_vs_engine(scenarios)
+    wavefront_s = time.perf_counter() - t0
+
+    # timeline (the study on the card, the simulated step's trace) and a
+    # study with --trace (the host trace of its stages)
+    rc = cli.main(["timeline", str(ROOT / "scenarios" /
+                                   "tinyllama_quick.json"), "--schedule",
+                   "interleaved", "--device", "cuda", "--out",
+                   str(TIMELINE_OUT)])
+    check(rc == 0, f"timeline exited {rc}")
+    timeline = json.loads(TIMELINE_OUT.read_text())
+    tl_counts = validate_chrome_trace(timeline)
+    idle = track_idle(timeline)
+    busy_us = sum(v["busy_us"] for v in idle.values())
+    idle_us = sum(v["idle_us"] for v in idle.values())
+    check(len(idle) > 1 and busy_us > 0, "timeline: busy device tracks")
+    rc = cli.main([str(ROOT / "scenarios" / "tinyllama_quick.json"),
+                   "--device", "cuda", "--schedule", "search",
+                   "--validate-top", "2", "--out",
+                   str(ROOT / "build" / "study_traced.json"),
+                   "--trace", str(STUDY_TRACE_OUT)])
+    torch.cuda.synchronize()
+    check(rc == 0, f"study with --trace exited {rc}")
+    trace = json.loads(STUDY_TRACE_OUT.read_text())
+    trace_counts = validate_chrome_trace(trace)
+    spans = {e["name"] for e in trace["traceEvents"] if e["ph"] == "X"}
+    missing = [n for n in STUDY_STAGE_SPANS if n not in spans]
+    check(not missing, f"study trace: no {missing} span")
+    launches = {name: m.launches for name, m in mods.items()}
+    check(launches["wavefront"] > 0, "validate: the wavefront launched on "
+          "the card")
+    check(all(n == 0 for name, n in launches.items() if name != "wavefront"),
+          "validate: no serving kernel launched on the validate path")
+    log("validate", {
+        "card": card_line(), "scenarios": card["n_scenarios"],
+        "rows": card["n_rows"], "asserted": card["n_asserted"],
+        "violations": card["n_violations"],
+        "max_abs_err_asserted": card["max_abs_err_asserted"],
+        "card_vs_cpu_rows": "identical",
+        "wall_s_card": card_s, "wall_s_cpu": cpu_s,
+        "wavefront_vs_engine_worst_rel_gap": worst,
+        "wavefront_vs_engine_rows": n_rows,
+        "wavefront_vs_engine_wall_s": wavefront_s,
+        "timeline": {"events": tl_counts, "device_tracks": len(idle),
+                     "busy_ms": busy_us / 1e3, "idle_ms": idle_us / 1e3,
+                     "idle_share": idle_us / (busy_us + idle_us)},
+        "study_trace": {"events": trace_counts,
+                        "stage_spans": sorted(n for n in spans
+                                              if n.startswith("study."))},
+        "launches": launches,
+        "phase_wall_s": time.perf_counter() - t_phase})
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# 10. resume: the trainer's runtime on the card
+# ---------------------------------------------------------------------------
+RESUME_ARCH, RESUME_DEPTH, RESUME_SEQ = "tinyllama-1.1b", 4, 1024
+RESUME_STEPS, RESUME_EVERY, RESUME_AT = 8, 4, 4
+RESUME_LOSS_RTOL = 1e-6     # only if the card's step is not deterministic
+PREEMPT_AT = 2
+CKPT_DIR = ROOT / "build" / "ckpt_smoke"
+
+
+def _state_tensors(state) -> dict:
+    out = {f"param/{n}": p.detach() for n, p in
+           state.model.named_parameters()}
+    out.update({f"m/{n}": t for n, t in state.opt.m.items()})
+    out.update({f"v/{n}": t for n, t in state.opt.v.items()})
+    return out
+
+
+def _bitwise_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        a.view(torch.int32), b.view(torch.int32))
+
+
+def phase_resume():
+    """TinyLlama-1.1B at full width, RESUME_DEPTH of 22 layers, batch 8 x
+    1024, float32 master weights and bf16 compute, through
+    ``launch.train``'s pieces: 8 steps straight with a checkpoint every 4
+    (keep 2); step 8's COMMITTED marker removed, as by a crash mid-write;
+    a fresh state from another seed resumed at step 4 and run to 8 (the
+    restored state, the pipeline's state and the losses against the
+    straight run's); then SIGTERM at step 2 of a third run.  Returns the
+    straight run's launches (counts set to 0 just before)."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import DataPipeline
+    from repro_torch.launch.steps import init_train_state, make_train_step
+    from repro_torch.launch.train import train_exec_config
+    from repro_torch.runtime import FaultTolerantLoop
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    cfg = dataclasses.replace(get_config(RESUME_ARCH), n_layers=RESUME_DEPTH)
+    ex = train_exec_config(cfg, torch.device("cuda"))
+    shape = ShapeConfig("train", "train", RESUME_SEQ, TRAIN_BATCH)
+    step_fn = make_train_step(cfg, ex)
+
+    # 1. eight steps straight, a checkpoint every four
+    state = init_train_state(cfg, ex, SEED)
+    n_params = sum(p.numel() for p in state.model.parameters())
+    mgr = CheckpointManager(CKPT_DIR, keep=2)
+    current = {}
+
+    def tracked_step(state, batch):
+        state, metrics = step_fn(state, batch)
+        current["state"] = state
+        return state, metrics
+
+    loop = FaultTolerantLoop(tracked_step, mgr,
+                             DataPipeline(cfg, shape, SEED, ex=ex),
+                             checkpoint_every=RESUME_EVERY)
+    losses, in_flight, saved, writes = {}, {}, {}, []
+
+    def on_metrics(step, metrics, dt):
+        losses[step] = metrics["loss"].item()
+        th = mgr._thread
+        # the write of the last checkpoint outlasted this whole step
+        in_flight[step] = th is not None and th.is_alive()
+        if step == RESUME_AT:       # what the loop saves next
+            now = current["state"]
+            saved.update({k: t.clone() for k, t in
+                          _state_tensors(now).items()})
+            saved["step"] = now.opt.step
+        elif step == RESUME_AT + 1:
+            writes.append(mgr.last_save)   # step 4's; timed once written
+
+    mods = _kernel_modules()
+    torch.cuda.synchronize()
+    for m in mods.values():
+        m.launches = 0
+    state, last = loop.run(state, RESUME_STEPS, on_metrics=on_metrics)
+    launches = {name: m.launches for name, m in mods.items()}
+    expected = {k: RESUME_STEPS * n for k, n in
+                expected_train_launches(cfg, RESUME_SEQ).items()}
+    check(last == RESUME_STEPS and mgr.all_steps() == [4, 8],
+          f"resume: the straight run ended at {last} with checkpoints "
+          f"{mgr.all_steps()}")
+    check(launches == expected, f"resume: launches {launches}, expected "
+          f"{expected}")
+    check(all(math.isfinite(v) for v in losses.values()),
+          "resume: finite losses")
+    writes.append(mgr.last_save)
+    times = dict(zip(range(1, RESUME_STEPS + 1), loop.step_times))
+    # step 1 builds the allocator's pools: not counted
+    quiet = [times[k] for k in range(2, RESUME_STEPS + 1) if not in_flight[k]]
+    busy = [times[k] for k in range(2, RESUME_STEPS + 1) if in_flight[k]]
+    straggler_steps = list(loop.straggler_steps)
+    del state, loop
+    torch.cuda.empty_cache()
+
+    # 2. a crash before step 8's checkpoint committed: resume at 4
+    (CKPT_DIR / "step_00000008" / "COMMITTED").unlink()
+    pipe = DataPipeline(cfg, shape, SEED + 1, ex=ex)
+    loop = FaultTolerantLoop(step_fn, CheckpointManager(CKPT_DIR, keep=2),
+                             pipe, checkpoint_every=RESUME_EVERY)
+    fresh = init_train_state(cfg, ex, SEED + 1)
+    t0 = time.perf_counter()
+    restored, start = loop.resume_or_init(fresh)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    check(start == RESUME_AT and restored.model is fresh.model,
+          f"resume: resumed at {start} into the live module")
+    check(pipe.checkpoint() == {"seed": SEED, "step": RESUME_AT},
+          f"resume: the pipeline's state {pipe.checkpoint()}")
+    check(restored.opt.step == saved["step"] == RESUME_AT,
+          f"resume: AdamW step {restored.opt.step}")
+    got = _state_tensors(restored)
+    bad = [k for k in got if not _bitwise_equal(got[k], saved[k])]
+    check(not bad, f"resume: {len(bad)} restored tensors differ from the "
+          f"saved ones bit for bit, first {bad[:3]}")
+    del saved
+    resumed = {}
+    restored, last = loop.run(
+        restored, RESUME_STEPS, start_step=start,
+        on_metrics=lambda step, m, dt: resumed.__setitem__(
+            step, m["loss"].item()))
+    check(last == RESUME_STEPS, f"resume: the resumed run ended at {last}")
+    pairs = [(losses[k], resumed[k]) for k in range(RESUME_AT + 1,
+                                                    RESUME_STEPS + 1)]
+    bitwise = all(a == b for a, b in pairs)
+    gap = max(abs(a - b) / abs(a) for a, b in pairs)
+    check(bitwise or gap < RESUME_LOSS_RTOL, f"resume: the resumed losses "
+          f"{[b for _, b in pairs]} vs the straight run's "
+          f"{[a for a, _ in pairs]} (relative gap {gap})")
+    del restored, fresh, loop
+    torch.cuda.empty_cache()
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+
+    # 3. preemption: SIGTERM at step 2 finishes the step, checkpoints it
+    mgr = CheckpointManager(CKPT_DIR / "preempt", keep=1)
+    loop = FaultTolerantLoop(step_fn, mgr, DataPipeline(cfg, shape, SEED,
+                                                        ex=ex),
+                             checkpoint_every=RESUME_EVERY)
+
+    def preempt(step, metrics, dt):
+        if step == PREEMPT_AT:
+            handler = signal.getsignal(signal.SIGTERM)
+            check(handler not in (signal.SIG_DFL, signal.SIG_IGN, None),
+                  "resume: the loop handles SIGTERM")
+            os.kill(os.getpid(), signal.SIGTERM)
+
+    state = init_train_state(cfg, ex, SEED)
+    state, last = loop.run(state, RESUME_STEPS, on_metrics=preempt)
+    committed = (CKPT_DIR / "preempt" / f"step_{PREEMPT_AT:08d}" /
+                 "COMMITTED").exists()
+    check(loop.preempted and last == PREEMPT_AT and committed
+          and mgr.all_steps() == [PREEMPT_AT],
+          f"resume: SIGTERM at step {PREEMPT_AT} ended the run at {last}, "
+          f"checkpoints {mgr.all_steps()}")
+    del state, loop
+    torch.cuda.empty_cache()
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    log("resume", {
+        "card": card_line(), "model": cfg.name, "layers": cfg.n_layers,
+        "full_depth": get_config(RESUME_ARCH).n_layers,
+        "params_b": n_params / 1e9, "batch": TRAIN_BATCH,
+        "seq": RESUME_SEQ, "checkpoint_gb": writes[0]["bytes"] / 1e9,
+        "step_ms_no_write_in_flight": [t * 1e3 for t in quiet],
+        "step_ms_write_in_flight": [t * 1e3 for t in busy],
+        "step_ms_mean_no_write": sum(quiet) / len(quiet) * 1e3
+        if quiet else None,
+        "step_ms_mean_write_in_flight": sum(busy) / len(busy) * 1e3
+        if busy else None,
+        "writes": [{"step": w["step"], "gb": w["bytes"] / 1e9,
+                    "host_copy_s": w["copy_s"], "write_s": w["write_s"],
+                    "write_gb_per_s": w["bytes"] / 1e9 / w["write_s"]}
+                   for w in writes],
+        "restore_s": restore_s,
+        "restore_gb_per_s": writes[0]["bytes"] / 1e9 / restore_s,
+        "losses": [losses[k] for k in sorted(losses)],
+        "resumed_losses": [resumed[k] for k in sorted(resumed)],
+        "resumed_bit_for_bit": bitwise, "resumed_max_rel_gap": gap,
+        "straggler_steps": straggler_steps,
+        "preempted_at": last, "launches": launches,
+        "phase_wall_s": time.perf_counter() - t_phase})
     return launches
 
 
@@ -2218,6 +2590,11 @@ def main() -> int:
     for arch, label, *shape in TRAIN_PATHS:
         by_path[label] = phase_train(arch, *shape)
     log("done", f"grad and train phases in "
+        f"{time.perf_counter() - t_new:.1f} s")
+    t_new = time.perf_counter()
+    by_path["validate"] = phase_validate()
+    by_path["resume"] = phase_resume()
+    log("done", f"validate and resume phases in "
         f"{time.perf_counter() - t_new:.1f} s")
 
     kernels = []

@@ -24,11 +24,33 @@ gate drift against an artifact.
 
     PYTHONPATH=src python -m repro_torch.cli calibrate --device cpu --quick
 
-The reference CLI's other subcommands (``validate``, ``timeline``,
-``bench``, ``lint``) and ``--trace`` are not ported.
+The ``validate`` subcommand runs the event-driven fidelity harness
+(``repro_torch.events.validate``) over scenario presets: each study runs
+on ``--device``, its top points are replayed by the scalar
+discrete-event engine (host code) under the requested pipeline
+schedules and compared against the analytic model, writing a versioned
+fidelity report (``artifacts/fidelity_report_h100.json`` by default;
+the reference's ``FIDELITY.json`` and ``CALIB.json`` are refused).
+
+    PYTHONPATH=src python -m repro_torch.cli validate --device cpu
+
+Observability (``repro_torch.obs``): ``--trace out.json`` on a study,
+``validate`` or ``calibrate`` run writes the HOST trace (where the
+pipeline spent its wall time) as Chrome Trace Event JSON — open it in
+https://ui.perfetto.dev.  The ``timeline`` subcommand replays a
+scenario's best pipelined design point through the event engine with
+full timeline recording and writes the SIMULATED step as a Perfetto
+trace (one track per pipeline stage and per rail, OCS reconfigurations
+as instant markers).
+
+    PYTHONPATH=src python -m repro_torch.cli timeline \
+        scenarios/tinyllama_quick.json --schedule interleaved --device cpu
+
+The reference CLI's ``bench`` and ``lint`` subcommands are not ported.
 
 Exit codes: 0 ok; 2 bad arguments; 3 when a study found NO feasible
-design point (every sweep cell infeasible); ``calibrate``: 1, and
+design point (every sweep cell infeasible); ``validate``: 1 when any
+asserted point exceeds the fidelity tolerance; ``calibrate``: 1, and
 nothing written, when on the card a fitted peak is over the card's or
 a fit's half is at the top of its search (``calib.card_fit_faults``),
 and with ``--check`` when any gated constant drifted beyond tolerance.
@@ -37,6 +59,7 @@ from __future__ import annotations
 
 import argparse
 import sys
+from contextlib import contextmanager
 from pathlib import Path
 from typing import List, Optional, Tuple
 
@@ -122,6 +145,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default="cuda",
                     help="where the study's device work runs (default "
                          "cuda; cpu runs the plain paths)")
+    ap.add_argument("--trace", default=None, metavar="TRACE_JSON",
+                    help="write the host trace (Chrome Trace Event "
+                         "JSON, Perfetto-loadable) covering every study")
     return ap
 
 
@@ -256,6 +282,160 @@ def _out_path(out: str, sc: Scenario, n_studies: int) -> Path:
     return p / f"{sc.name}.json"
 
 
+@contextmanager
+def _maybe_tracing(path: Optional[str]):
+    """Install a host tracer for the block when ``path`` is given and
+    write the Chrome trace on exit."""
+    if not path:
+        yield None
+        return
+    from repro_torch.obs import (chrome_trace_from_tracer, tracing,
+                                 write_chrome_trace)
+    with tracing() as tr:
+        yield tr
+    p = write_chrome_trace(path, chrome_trace_from_tracer(tr))
+    print(f"  wrote host trace {p} — open in https://ui.perfetto.dev")
+
+
+# ---------------------------------------------------------------------------
+# `validate` subcommand — the event-driven fidelity harness
+# ---------------------------------------------------------------------------
+def build_validate_parser() -> argparse.ArgumentParser:
+    from repro_torch.events.validate import DEFAULT_FIDELITY_PATH
+    ap = argparse.ArgumentParser(
+        prog="python -m repro_torch.cli validate",
+        description="Event-driven fidelity harness: run each scenario's "
+                    "study on --device, replay its top design points "
+                    "with the scalar event engine and compare against "
+                    "the analytic model.")
+    ap.add_argument("scenario", nargs="*",
+                    help="scenario JSON file(s); default: scenarios/*.json")
+    ap.add_argument("--top", type=int, default=4,
+                    help="points replayed per scenario")
+    ap.add_argument("--schedules", type=_csv(str, "--schedules"),
+                    default=("gpipe", "1f1b", "interleaved"),
+                    help="pipeline schedules to replay")
+    ap.add_argument("--tolerance", type=float, default=None,
+                    help="asserted |err| bound for gpipe/1f1b rows "
+                         "(default 0.15)")
+    ap.add_argument("--quick", action="store_true",
+                    help="smoke mode: first scenario, top 2, "
+                         "gpipe+1f1b only")
+    ap.add_argument("--out", default=DEFAULT_FIDELITY_PATH,
+                    help="fidelity report JSON path (the reference's "
+                         "FIDELITY.json is refused)")
+    ap.add_argument("--trace", default=None, metavar="TRACE_JSON",
+                    help="write the harness host trace (Chrome Trace "
+                         "Event JSON, Perfetto-loadable)")
+    ap.add_argument("--device", default="cuda",
+                    help="where the studies' device work runs (default "
+                         "cuda; cpu runs the plain paths)")
+    return ap
+
+
+def main_validate(argv: List[str]) -> int:
+    from repro_torch.events.validate import DEFAULT_TOLERANCE, validate_zoo
+    ap = build_validate_parser()
+    args = ap.parse_args(argv)
+    paths = args.scenario or sorted(
+        str(p) for p in Path("scenarios").glob("*.json"))
+    tol = DEFAULT_TOLERANCE if args.tolerance is None else args.tolerance
+    top, schedules = args.top, tuple(args.schedules)
+    if args.quick:
+        paths = paths[:1]
+        top = min(top, 2)
+        schedules = tuple(s for s in schedules
+                          if s in ("gpipe", "1f1b")) or ("gpipe",)
+    try:
+        with _maybe_tracing(args.trace):
+            report = validate_zoo(paths, top=top, schedules=schedules,
+                                  tolerance=tol, out=args.out,
+                                  device=args.device)
+    except (ValueError, KeyError, OSError) as e:
+        ap.exit(EXIT_USAGE, f"{ap.prog}: error: {e}\n")
+    print(f"\n=== fidelity report: {report['n_scenarios']} scenarios, "
+          f"{report['n_rows']} replays, tolerance ±{tol:.0%} "
+          f"(studies on {report['device']}) ===")
+    for block in report["scenarios"]:
+        by_sched: dict = {}
+        for r in block["rows"]:
+            by_sched.setdefault(r["schedule"], []).append(r)
+        parts = []
+        for sched, rows in sorted(by_sched.items()):
+            worst = max(abs(r["err"]) for r in rows)
+            parts.append(f"{sched}: max|err| {worst * 100:4.1f}%")
+        print(f"  {block['scenario']:24s} "
+              f"({block['n_points']} pts)  " + "   ".join(parts))
+    print(f"  wrote {args.out}")
+    if report["n_violations"]:
+        print(f"FAIL: {report['n_violations']} asserted replays exceed "
+              f"±{tol:.0%}")
+        return 1
+    print(f"OK: all {report['n_asserted']} asserted replays within "
+          f"±{tol:.0%} of the analytic model")
+    return EXIT_OK
+
+
+# ---------------------------------------------------------------------------
+# `timeline` subcommand — the simulated-step Perfetto trace
+# ---------------------------------------------------------------------------
+def build_timeline_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(
+        prog="python -m repro_torch.cli timeline",
+        description="Replay a scenario's best design point through the "
+                    "event engine with full timeline recording and "
+                    "write the simulated training step as Chrome Trace "
+                    "Event JSON (one track per pipeline stage / rail; "
+                    "open in https://ui.perfetto.dev — the bubble is "
+                    "the white space).")
+    ap.add_argument("scenario", help="scenario JSON file")
+    ap.add_argument("--schedule", default="1f1b",
+                    choices=("gpipe", "1f1b", "interleaved"),
+                    help="pipeline schedule to replay")
+    ap.add_argument("--top", type=int, default=8,
+                    help="top records considered when picking the "
+                         "(preferably pipelined) point to replay")
+    ap.add_argument("--out", default=None,
+                    help="trace JSON path (default: artifacts/"
+                         "timeline_<scenario>_<schedule>.json)")
+    ap.add_argument("--device", default="cuda",
+                    help="where the study's device work runs (default "
+                         "cuda; cpu runs the plain paths)")
+    return ap
+
+
+def main_timeline(argv: List[str]) -> int:
+    from repro_torch.events import replay
+    from repro_torch.obs import (chrome_trace_from_event_result, track_idle,
+                                 write_chrome_trace)
+    from repro_torch.obs.bench import pipelined_programs
+    ap = build_timeline_parser()
+    args = ap.parse_args(argv)
+    try:
+        sc = Scenario.load(args.scenario)
+        prog = pipelined_programs(sc, schedule=args.schedule,
+                                  top=args.top, device=args.device)
+    except (ValueError, KeyError, OSError) as e:
+        ap.exit(EXIT_USAGE, f"{ap.prog}: error: {e}\n")
+    ev = replay(prog, record_timeline=True)
+    trace = chrome_trace_from_event_result(ev, title=sc.name)
+    out = args.out or (f"artifacts/timeline_{sc.name}_"
+                       f"{args.schedule}.json")
+    path = write_chrome_trace(out, trace)
+    idle = track_idle(trace)
+    total_idle = sum(v["idle_us"] for v in idle.values())
+    total_busy = sum(v["busy_us"] for v in idle.values())
+    print(f"=== {sc.name}: schedule={ev.schedule} pp={ev.n_stages} "
+          f"n_micro={ev.n_micro} ===")
+    print(f"  step {ev.step_time * 1e3:.3f} ms  bubble {ev.bubble:.3f}  "
+          f"reconf {ev.n_reconf} (wait {ev.reconf_wait_s * 1e3:.3f} ms)")
+    print(f"  device tracks: {len(idle)}  busy {total_busy / 1e3:.3f} ms"
+          f"  idle {total_idle / 1e3:.3f} ms "
+          f"({total_idle / max(total_idle + total_busy, 1e-12):.0%})")
+    print(f"  wrote {path} — open in https://ui.perfetto.dev")
+    return EXIT_OK
+
+
 # ---------------------------------------------------------------------------
 # `calibrate` subcommand — measured kernel constants + the drift gate
 # ---------------------------------------------------------------------------
@@ -287,6 +467,10 @@ def build_calibrate_parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default="cuda",
                     help="where the kernels run (default cuda; cpu times "
                          "the plain versions)")
+    ap.add_argument("--trace", default=None, metavar="TRACE_JSON",
+                    help="write the profile host trace (spans + "
+                         "achieved-rate counter tracks, Perfetto-"
+                         "loadable)")
     return ap
 
 
@@ -299,8 +483,9 @@ def main_calibrate(argv: List[str]) -> int:
     args = ap.parse_args(argv)
     try:
         committed = load_calibration(args.out) if args.check else None
-        measurements = profile_kernels(args.kernels, quick=args.quick,
-                                       device=args.device)
+        with _maybe_tracing(args.trace):
+            measurements = profile_kernels(args.kernels, quick=args.quick,
+                                           device=args.device)
         calib = fit_calibration(measurements, quick=args.quick,
                                 device=args.device)
     except (ValueError, KeyError, OSError) as e:
@@ -352,6 +537,10 @@ def main_calibrate(argv: List[str]) -> int:
 
 def main(argv: Optional[List[str]] = None) -> int:
     argv = sys.argv[1:] if argv is None else list(argv)
+    if argv and argv[0] == "validate":
+        return main_validate(argv[1:])
+    if argv and argv[0] == "timeline":
+        return main_timeline(argv[1:])
     if argv and argv[0] == "calibrate":
         return main_calibrate(argv[1:])
     ap = build_parser()
@@ -362,16 +551,17 @@ def main(argv: Optional[List[str]] = None) -> int:
         ap.exit(EXIT_USAGE, f"{ap.prog}: error: {e}\n")
 
     all_feasible = True
-    for sc in scenarios:
-        try:
-            res = Study(sc).run(device=args.device)
-        except ValueError as e:      # driver_kw / grid-shape misuse
-            ap.exit(EXIT_USAGE, f"{ap.prog}: error: {e}\n")
-        _print_study(res, args.top)
-        path = res.save(_out_path(args.out, sc, len(scenarios)))
-        print(f"  wrote {path}")
-        if res.best is None:
-            all_feasible = False
+    with _maybe_tracing(args.trace):
+        for sc in scenarios:
+            try:
+                res = Study(sc).run(device=args.device)
+            except ValueError as e:      # driver_kw / grid-shape misuse
+                ap.exit(EXIT_USAGE, f"{ap.prog}: error: {e}\n")
+            _print_study(res, args.top)
+            path = res.save(_out_path(args.out, sc, len(scenarios)))
+            print(f"  wrote {path}")
+            if res.best is None:
+                all_feasible = False
     return EXIT_OK if all_feasible else EXIT_INFEASIBLE
 
 

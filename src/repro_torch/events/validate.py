@@ -1,24 +1,43 @@
-"""The study's validation stamp: event-driven replay of a result's top
-records.
+"""Fidelity harness: event-driven replay vs the analytic model.
 
-``stamp_validation(result, top, schedule, device)`` — the ``Study.run``
-integration: batch-replays the top-K records of a ``StudyResult`` on the
-chosen device and stamps each with ``validated_step_time`` /
-``fidelity_err`` metrics (plus a ``validate`` provenance block).
+Two entry points sit on top of the engines:
 
-The standalone fidelity harness behind ``cli validate``
-(``validate_scenario`` / ``validate_zoo``, on the scalar discrete-event
-engine) comes with that command.
+* ``stamp_validation(result, top, schedule, device)`` — the ``Study.run``
+  integration: batch-replays the top-K records of a ``StudyResult`` on
+  the chosen device and stamps each with ``validated_step_time`` /
+  ``fidelity_err`` metrics (plus a ``validate`` provenance block).
+
+* ``validate_scenario`` / ``validate_zoo`` — the standalone harness
+  behind ``python -m repro_torch.cli validate``: runs each scenario
+  preset's study on ``device``, replays its top points with the scalar
+  discrete-event engine (``repro_torch.events.engine``, host code) under
+  every requested schedule, and writes a VERSIONED fidelity report
+  artifact (``FIDELITY_SCHEMA``) with per-point analytic vs event step
+  times, errors, measured bubbles and OCS reconfiguration counts.  Rows
+  whose schedule matches the analytic model's bubble assumption
+  (``gpipe`` / ``1f1b``) are asserted to agree within ``tolerance``
+  (default 15%); ``interleaved`` rows are reported only — their smaller
+  bubble is scenario diversity the analytic model cannot express.
 """
 from __future__ import annotations
 
+import json
 import time
-from typing import Dict, List, Optional, Tuple
+from pathlib import Path
+from typing import Dict, List, Optional, Sequence, Tuple
 
+from repro_torch.calib import (DEFAULT_CALIB_PATH, _refuse_reference_artifact,
+                               execution_block, load_calibration)
 from repro_torch.core.mcm import MCMArch
 from repro_torch.core.network import OITopology, RailDim
 from repro_torch.core.traffic import Strategy
-from repro_torch.events.dag import SCHEDULES
+from repro_torch.events.dag import SCHEDULES, compile_step
+from repro_torch.events.engine import replay
+
+FIDELITY_SCHEMA = 1
+DEFAULT_TOLERANCE = 0.15
+ASSERTED_SCHEDULES = ("gpipe", "1f1b")
+DEFAULT_FIDELITY_PATH = "artifacts/fidelity_report_h100.json"
 
 
 # ---------------------------------------------------------------------------
@@ -147,3 +166,156 @@ def stamp_validation(result, top: int, schedule: str = "gpipe",
     result.provenance["validate"] = summary
     result.timings["validate_s"] = summary["elapsed_s"]
     return summary
+
+
+# ---------------------------------------------------------------------------
+# Standalone fidelity harness (scalar engine — the ground truth)
+# ---------------------------------------------------------------------------
+def validate_scenario(scenario, top: int = 4,
+                      schedules: Sequence[str] = SCHEDULES,
+                      tolerance: float = DEFAULT_TOLERANCE,
+                      device="cuda") -> dict:
+    """Run one scenario's study on ``device``, replay its top points
+    under every schedule with the scalar event engine (on the host), and
+    return a per-point fidelity block."""
+    from repro_torch.api import Study
+    bad = [s for s in schedules if s not in SCHEDULES]
+    if bad:
+        raise ValueError(f"unknown schedules {bad}; known: "
+                         f"{list(SCHEDULES)}")
+    t0 = time.perf_counter()
+    # validate_top=0: the harness replays the points itself (scalar
+    # engine, every schedule) — don't batch-validate them a first time
+    result = Study(scenario).run(validate_top=0, device=device)
+    rows = []
+    for i in _top_records(result, top):
+        rec = result.records[i]
+        try:
+            s, mcm, topo, fabric = _rebuild(rec, scenario)
+        except (KeyError, TypeError):
+            continue
+        for sched in schedules:
+            try:
+                prog = compile_step(scenario.build_workload(), s, mcm,
+                                    fabric=fabric, topo=topo,
+                                    reuse=scenario.reuse,
+                                    hw=scenario.build_hw(), schedule=sched)
+            except ValueError:
+                continue
+            ev = replay(prog)
+            asserted = sched in ASSERTED_SCHEDULES
+            rows.append({
+                "scenario": scenario.name,
+                "schedule": sched,
+                "strategy": dict(rec.strategy),
+                "mcm": dict(rec.mcm),
+                "fabric": fabric,
+                "analytic_step_time": ev.analytic_step_time,
+                "event_step_time": ev.step_time,
+                "err": ev.err,
+                "bubble_event": ev.bubble,
+                "bubble_analytic": float(
+                    prog.analytic.logs.get("bubble", 0.0)),
+                "peak_inflight": ev.peak_inflight,
+                "n_reconf": ev.n_reconf,
+                "reconf_wait_s": ev.reconf_wait_s,
+                "n_events": ev.n_events,
+                "asserted": asserted,
+                "ok": (abs(ev.err) <= tolerance) if asserted else True,
+            })
+    n_points = len({(tuple(sorted(r["strategy"].items())),
+                     tuple(sorted(r["mcm"].items())), r["fabric"])
+                    for r in rows})
+    return {"scenario": scenario.name,
+            "scenario_hash": scenario.scenario_hash(),
+            "n_points": n_points,
+            "rows": rows, "elapsed_s": time.perf_counter() - t0}
+
+
+def execution_anchor(calib_path=DEFAULT_CALIB_PATH):
+    """The fidelity report's execution-grounded block: a summary of the
+    port's calibration artifact (``repro_torch.calib``), or ``None`` when
+    no usable artifact exists at ``calib_path``.  The reference package's
+    ``CALIB.json`` is refused, never read."""
+    _refuse_reference_artifact(calib_path)
+    try:
+        calib = load_calibration(calib_path)
+    except (OSError, ValueError):
+        return None
+    return execution_block(calib, source=calib_path)
+
+
+def validate_zoo(paths: Sequence = (), top: int = 4,
+                 schedules: Sequence[str] = SCHEDULES,
+                 tolerance: float = DEFAULT_TOLERANCE,
+                 out: Optional[str] = None, device="cuda") -> dict:
+    """Sweep scenario JSON files (default: ``scenarios/*.json``) through
+    ``validate_scenario`` (studies on ``device``) and write the versioned
+    fidelity report to ``out`` (never the reference package's
+    ``FIDELITY.json`` or ``CALIB.json``)."""
+    from repro_torch.api import Scenario
+    from repro_torch.obs import metrics, span
+    if out:
+        _refuse_reference_artifact(out)
+    paths = list(paths) or sorted(Path("scenarios").glob("*.json"))
+    blocks = []
+    with metrics.scope() as ms:
+        for path in paths:
+            sc = Scenario.load(path)
+            with span("validate.scenario", scenario=sc.name):
+                blocks.append(validate_scenario(
+                    sc, top=top, schedules=schedules,
+                    tolerance=tolerance, device=device))
+    # records the studies' batch replays saw while the harness ran; the
+    # port's wavefront has no scalar fallback: 0, kept for the schema
+    n_rec = int(ms.counters.get("batch_replay.records", 0))
+    rows = [r for b in blocks for r in b["rows"]]
+    asserted = [r for r in rows if r["asserted"]]
+    violations = [r for r in asserted if not r["ok"]]
+    report = {
+        "schema": FIDELITY_SCHEMA,
+        "tolerance": tolerance,
+        "schedules": list(schedules),
+        "top_per_scenario": top,
+        "device": str(device),
+        "n_scenarios": len(blocks),
+        "n_rows": len(rows),
+        "n_asserted": len(asserted),
+        "n_violations": len(violations),
+        "max_abs_err_asserted": max((abs(r["err"]) for r in asserted),
+                                    default=None),
+        "batch_replay": {"records": n_rec, "scalar_fallback": 0,
+                         "fallback_frac": 0.0},
+        "scenarios": blocks,
+    }
+    # Execution-grounded anchor: where the port's calibration artifact
+    # exists, the report records what the analytic constants were fitted
+    # against (not asserted — drift gating is `cli calibrate --check`'s)
+    anchor = execution_anchor()
+    if anchor is not None:
+        report["execution"] = anchor
+    if out:
+        p = Path(out)
+        p.parent.mkdir(parents=True, exist_ok=True)
+        p.write_text(json.dumps(report, indent=2) + "\n")
+    return report
+
+
+def fidelity_table(report: dict) -> List[Dict]:
+    """Per-(scenario, schedule) summary rows for reporting (README)."""
+    agg: Dict[Tuple[str, str], List[dict]] = {}
+    for b in report["scenarios"]:
+        for r in b["rows"]:
+            agg.setdefault((r["scenario"], r["schedule"]), []).append(r)
+    out = []
+    for (name, sched), rows in sorted(agg.items()):
+        out.append({
+            "scenario": name, "schedule": sched, "n": len(rows),
+            "max_abs_err": max(abs(r["err"]) for r in rows),
+            "mean_err": sum(r["err"] for r in rows) / len(rows),
+            "mean_bubble_event": sum(r["bubble_event"] for r in rows)
+            / len(rows),
+            "mean_bubble_analytic": sum(r["bubble_analytic"] for r in rows)
+            / len(rows),
+        })
+    return out

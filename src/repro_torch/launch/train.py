@@ -1,29 +1,41 @@
-"""Training on one device: seeded synthetic batches through
-``make_train_step`` (counterpart of ``repro/launch/train.py``'s step loop).
+"""Training driver on one device: ``python -m repro_torch.launch.train
+--arch <id> ...`` (counterpart of ``repro/launch/train.py``).
 
-``python -m repro_torch.launch.train --arch tinyllama-1.1b`` trains on the
-GPU with float32 master weights and bfloat16 compute (the kernels in the
-forward); ``--device cpu`` trains on the CPU in float32 (the plain
-versions), ``--reduced`` the config's tiny version.  Every family trains:
-dense (``tinyllama-1.1b``), moe (``mixtral-8x7b``, with the router's aux
-loss), vlm (``llava-next-34b``, the loss masked over the prefix), hybrid
+Composes: config -> model -> ``make_train_step`` -> the deterministic
+data pipeline (``repro_torch.data``) -> the fault-tolerant loop
+(``repro_torch.runtime``) with async checkpoints
+(``repro_torch.checkpoint``, every ``--ckpt-every`` steps into
+``--ckpt-dir``; ``--resume`` restores the latest committed one and goes
+on from its step; SIGTERM/SIGINT finish the step, write a checkpoint and
+stop).
+
+``--arch tinyllama-1.1b`` trains on the GPU with float32 master weights
+and bfloat16 compute (the kernels in the forward); ``--device cpu``
+trains on the CPU in float32 (the plain versions), ``--reduced`` the
+config's tiny version.  Every family trains: dense (``tinyllama-1.1b``),
+moe (``mixtral-8x7b``, with the router's aux loss), vlm
+(``llava-next-34b``, the loss masked over the prefix), hybrid
 (``zamba2-7b``), ssm (``mamba2-780m``) and encdec (``whisper-medium``:
 ``--seq`` is the decoder's length; the encoder takes the config's
 ``encoder_len`` frames).  The full configs past one card's memory train
 only at a cut depth, which ``chip_smoke.py`` sets.
+
+    PYTHONPATH=src python -m repro_torch.launch.train --reduced \
+        --device cpu --steps 4 --ckpt-every 2 --resume
 """
 from __future__ import annotations
 
 import argparse
-import time
 
 import torch
 
+from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import get_config
 from repro_torch.configs.base import ShapeConfig
+from repro_torch.data import DataPipeline
 from repro_torch.launch.steps import init_train_state, make_train_step
-from repro_torch.models import build_model
 from repro_torch.models.common import ExecConfig, check_device
+from repro_torch.runtime import FaultTolerantLoop
 
 
 def train_exec_config(cfg, device) -> ExecConfig:
@@ -36,23 +48,25 @@ def train_exec_config(cfg, device) -> ExecConfig:
 
 
 def main(argv=None):
-    ap = argparse.ArgumentParser(
-        description=__doc__.split("\n\n")[0],
-        epilog="The data pipeline, checkpoints, resume and the "
-        "fault-tolerant loop are not ported yet (ROADMAP A8): every step "
-        "draws a fresh synthetic batch from --seed + step.")
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", default="tinyllama-1.1b",
                     help="any arch of every family: tinyllama-1.1b, "
                     "mixtral-8x7b, llava-next-34b, zamba2-7b, mamba2-780m, "
                     "whisper-medium, ...")
     ap.add_argument("--reduced", action="store_true")
-    ap.add_argument("--steps", type=int, default=10)
+    ap.add_argument("--steps", type=int, default=10,
+                    help="total steps (a resumed run goes on to it)")
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=1024,
                     help="tokens a sequence (encdec: the decoder's)")
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--accum", type=int, default=1)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--ckpt-dir", default="artifacts/ckpt_torch")
+    ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--resume", action="store_true",
+                    help="restore the latest committed checkpoint in "
+                    "--ckpt-dir and go on from its step")
     ap.add_argument("--device", default="cuda",
                     help="cuda (bfloat16 compute, the kernels) or cpu "
                     "(float32, the plain versions)")
@@ -63,26 +77,35 @@ def main(argv=None):
     if args.reduced:
         cfg = cfg.reduced()
     ex = train_exec_config(cfg, device)
-    fns = build_model(cfg)
     shape = ShapeConfig("train", "train", args.seq, args.batch)
     state = init_train_state(cfg, ex, args.seed)
-    step = make_train_step(cfg, ex, base_lr=args.lr, accum=args.accum)
+    step_fn = make_train_step(cfg, ex, base_lr=args.lr, accum=args.accum)
+    pipeline = DataPipeline(cfg, shape, seed=args.seed, ex=ex)
+    ckpt = CheckpointManager(args.ckpt_dir)
+    loop = FaultTolerantLoop(step_fn, ckpt, pipeline,
+                             checkpoint_every=args.ckpt_every)
+    start = 0
+    if args.resume:
+        state, start = loop.resume_or_init(state)
+        print(f"resumed from step {start}")
     history = []
-    for i in range(args.steps):
-        batch = fns.make_batch(args.seed + i, shape, ex, kind="train")
-        t0 = time.perf_counter()
-        state, m = step(state, batch)
-        loss, gnorm = float(m["loss"]), float(m["grad_norm"])   # waits
-        ms = (time.perf_counter() - t0) * 1e3
-        history.append({"step": i, "loss": loss, "grad_norm": gnorm,
+
+    def on_metrics(step, m, dt):
+        loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+        ms = dt * 1e3
+        history.append({"step": step - 1, "loss": loss, "grad_norm": gnorm,
                         "lr": m["lr"], "ms": ms})
-        print(f"step {i}: loss {loss:.4f} grad_norm {gnorm:.4f} lr "
+        print(f"step {step - 1}: loss {loss:.4f} grad_norm {gnorm:.4f} lr "
               f"{m['lr']:.3g} {ms:.1f} ms "
               f"({args.batch * args.seq / ms * 1e3:.0f} tok/s)")
+
+    state, last = loop.run(state, args.steps, start_step=start,
+                           on_metrics=on_metrics)
     where = (torch.cuda.get_device_name(device) if device.type == "cuda"
              else "cpu")
-    print(f"{cfg.name}: {args.steps} steps of {args.batch} x {args.seq} on "
-          f"{where}")
+    print(f"{cfg.name}: steps {start}-{last} of {args.batch} x {args.seq} "
+          f"on {where}; latest checkpoint {ckpt.latest_step()} in "
+          f"{args.ckpt_dir}; stragglers {loop.straggler_steps}")
     return history
 
 
