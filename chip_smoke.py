@@ -120,9 +120,34 @@ Phases, in order; any failure raises and exits non-zero:
    with a committed checkpoint.  Prints the step ms with and without a
    write in flight, each write's seconds and GB/s and the straggler
    steps; ``build/ckpt_smoke`` is deleted at the end.
+11. shard - the sharded trainer (``launch.train.build_sharded_train``)
+   on a one-rank NCCL group (a file store, no port) and its (1, 1)
+   ("data", "model") mesh: TinyLlama-1.1B at full width and depth, batch
+   8 x 1024, bf16 compute, 3 steps through it and 3 through
+   ``make_train_step`` from the same init and batches (losses and every
+   parameter bit for bit, else the largest difference; the sharded
+   steps' launches counted); Mixtral-8x7B at full width, 1 of 32 layers,
+   ``moe_impl="a2a"``: a warm-up step and a counted one (the gmm's 6
+   launches); then its MoE layer at 8 x 1024 tokens, where ``cap_exp``
+   equals ``capacity()`` (2560 rows an expert, block_t 128 on the wgmma
+   kernel): the a2a against the dense ``moe_apply`` (y, aux, every
+   gradient) and the a2a's gmm against its plain version.  Prints step
+   ms, peak memory, launches and the world size.
 
 The last lines are the card's name and power limit (nvidia-smi), one JSON
 line ``{"kernels": [...]}`` and ``{"ok": true, "device": {...}}``.
+
+    torchrun --standalone --nproc-per-node 4 chip_smoke.py --ranks
+
+runs the sharded trainer alone across the cards of one host (NCCL, a
+card a rank; ``--device cpu --reduced`` on gloo over the reduced
+configs): TinyLlama-1.1B at full depth on a (world, 1) mesh against one
+card's ``make_train_step``; Mixtral-8x7B at full width, 1 layer, over
+the all-to-all on (world, 1) against one card's ``make_train_step`` with
+accum = world (each microbatch routed on its own, as each data rank's
+tile is), then 2 layers on (world / 2, 2), the all-to-all between the
+cards: losses and step 1's gradients against the one card's, each
+rank's step ms, peak memory, state and launches.
 """
 from __future__ import annotations
 
@@ -1385,7 +1410,9 @@ def phase_calibrate():
     for r in rows:
         mod = CALIB_MODULES.get(r["kernel"])
         if mod:
-            expected[mod] += 1 + r["reps"]      # one warm-up, then reps
+            # one warm-up, then reps (times repeats at the top points
+            # that are timed more than once)
+            expected[mod] += 1 + r["reps"] * r.get("repeats", 1)
             check(r["impl"].startswith(f"cuda:{mod}"),
                   f"calibrate {r['kernel']} x={r['x']}: ran {r['impl']}, "
                   f"not the hand kernel")
@@ -1395,11 +1422,12 @@ def phase_calibrate():
         check(r["dtype"] == "float32", f"calibrate {r['kernel']}: dtype")
     log("calibrate", f"main-path launches {launches}; expected {expected}")
     check(launches == expected, "calibrate: every kernel launched warm-up + "
-          "reps times per grid point")
+          "reps (x repeats) times per grid point")
     for r in rows:
         log("calibrate", {k: r[k] for k in ("kernel", "axis", "x", "impl",
                                             "time_s", "flops_per_s",
-                                            "bytes_per_s")})
+                                            "bytes_per_s", "times_s")
+                          if k in r})
     peaks = {"compute": PEAK_FLOPS[torch.float32],
              "memory": PEAK_BYTES_PER_S}
     fits = {}
@@ -2332,6 +2360,7 @@ def phase_validate():
 RESUME_ARCH, RESUME_DEPTH, RESUME_SEQ = "tinyllama-1.1b", 4, 1024
 RESUME_STEPS, RESUME_EVERY, RESUME_AT = 8, 4, 4
 RESUME_LOSS_RTOL = 1e-6     # only if the card's step is not deterministic
+TRAIN_SEQ_SHARD = 1024
 PREEMPT_AT = 2
 CKPT_DIR = ROOT / "build" / "ckpt_smoke"
 
@@ -2514,6 +2543,480 @@ def phase_resume():
     return launches
 
 
+# ---------------------------------------------------------------------------
+# 11. shard: the sharded trainer on a one-rank NCCL mesh
+# ---------------------------------------------------------------------------
+SHARD_ARCH, SHARD_STEPS = "tinyllama-1.1b", 3
+SHARD_MOE_ARCH, SHARD_MOE_DEPTH = "mixtral-8x7b", 1
+# the a2a layer against the dense one: the same function at one model
+# rank, so any difference is a sum order; the gmm inside the a2a against
+# its plain version at bf16's GMM_TOL
+SHARD_MOE_RTOL = 1e-2
+
+
+def _one_rank_mesh(store_path: str):
+    """A one-rank NCCL group on a file store at ``store_path`` (no port)
+    and its (1, 1) ("data", "model") mesh."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    torch.cuda.set_device(0)
+    store = dist.FileStore(store_path, 1)
+    dist.init_process_group("nccl", store=store, rank=0, world_size=1,
+                            device_id=torch.device("cuda", 0))
+    return init_device_mesh("cuda", (1, 1), mesh_dim_names=("data", "model"))
+
+
+def _timed_steps(step, state, batches):
+    """-> (state, the losses, each step's ms on the card's clock)."""
+    losses, ms = [], []
+    for b in batches:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, m = step(state, b)
+        end.record()
+        torch.cuda.synchronize()
+        ms.append(start.elapsed_time(end))
+        losses.append(m["loss"].item())
+    return state, losses, ms
+
+
+def _max_diff(a: torch.Tensor, b: torch.Tensor) -> tuple:
+    """-> (bit for bit, max |a - b|, that over max |b|)."""
+    d = (a.float() - b.float()).abs().max().item()
+    return _bitwise_equal(a, b) if a.dtype == torch.float32 else \
+        torch.equal(a, b), d, d / max(b.float().abs().max().item(), 1e-30)
+
+
+def _shard_dense(mesh, mods):
+    """TinyLlama at full width and depth: SHARD_STEPS steps through
+    ``make_train_step`` and through ``build_sharded_train`` from the same
+    init and batches -> (the sharded steps' launches, the record)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import DataPipeline
+    from repro_torch.launch.steps import init_train_state, make_train_step
+    from repro_torch.launch.train import build_sharded_train, train_exec_config
+
+    cfg = get_config(SHARD_ARCH)
+    ex = train_exec_config(cfg, torch.device("cuda"))
+    shape = ShapeConfig("train", "train", TRAIN_SEQ_SHARD, TRAIN_BATCH)
+    pipe = DataPipeline(cfg, shape, SEED, ex=ex)
+    batches = [pipe.batch_at(i) for i in range(SHARD_STEPS)]
+
+    torch.cuda.reset_peak_memory_stats()
+    state = init_train_state(cfg, ex, SEED)
+    state, plain_losses, plain_ms = _timed_steps(make_train_step(cfg, ex),
+                                                 state, batches)
+    plain_peak = torch.cuda.max_memory_allocated() / 1e9
+    plain = {n: p.detach() for n, p in state.model.named_parameters()}
+    del state
+    torch.cuda.empty_cache()
+
+    step, place = build_sharded_train(cfg, ex, mesh, shape)
+    torch.cuda.reset_peak_memory_stats()
+    state = place(init_train_state(cfg, ex, SEED))
+    torch.cuda.synchronize()
+    for m in mods.values():
+        m.launches = 0
+    state, losses, ms = _timed_steps(step, state, batches)
+    launches = {name: m.launches for name, m in mods.items()}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    expected = {k: SHARD_STEPS * n for k, n in
+                expected_train_launches(cfg, TRAIN_SEQ_SHARD).items()}
+    check(launches == expected, f"shard {cfg.name}: launches {launches}, "
+          f"expected {expected}")
+    diffs = {n: _max_diff(p.detach().to_local(), plain[n])
+             for n, p in state.model.named_parameters()}
+    worst = max(diffs, key=lambda n: diffs[n][2])
+    bitwise = all(d[0] for d in diffs.values()) and losses == plain_losses
+    loss_gap = max(abs(a - b) / abs(b) for a, b in zip(losses, plain_losses))
+    check(all(math.isfinite(v) for v in losses), f"shard {cfg.name}: finite "
+          f"losses {losses}")
+    check(bitwise or (loss_gap < 1e-6 and diffs[worst][2] < 1e-6),
+          f"shard {cfg.name}: sharded vs make_train_step: losses {losses} vs "
+          f"{plain_losses}, worst parameter {worst} {diffs[worst]}")
+    n_params = sum(p.numel() for p in plain.values())
+    del state, plain
+    torch.cuda.empty_cache()
+    return launches, {
+        "model": cfg.name, "layers": cfg.n_layers, "params_b": n_params / 1e9,
+        "batch": TRAIN_BATCH, "seq": TRAIN_SEQ_SHARD, "steps": SHARD_STEPS,
+        "bit_for_bit": bitwise, "losses": losses,
+        "make_train_step_losses": plain_losses, "max_loss_rel_gap": loss_gap,
+        "worst_param": worst, "worst_param_max_abs_diff": diffs[worst][1],
+        "worst_param_rel_diff": diffs[worst][2],
+        "step_ms": ms, "make_train_step_ms": plain_ms,
+        "step_ms_after_first": sum(ms[1:]) / len(ms[1:]),
+        "make_train_step_ms_after_first": sum(plain_ms[1:]) / len(
+            plain_ms[1:]),
+        "peak_mem_gb": peak, "make_train_step_peak_mem_gb": plain_peak,
+        "launches": launches}
+
+
+def _moe_layer_grads(fn, moe, h, g):
+    """``fn(moe, h) -> (y, aux)``, then the gradients of sum(y g) + aux ->
+    (y, aux, {name: gradient}, ms of forward + backward)."""
+    h = h.detach().requires_grad_()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    y, aux = fn(moe, h)
+    wrt = {"x": h, "router": moe.router.weight, "w1": moe.w1, "w3": moe.w3,
+           "w2": moe.w2}
+    grads = torch.autograd.grad((y.float() * g).sum() + aux,
+                                list(wrt.values()))
+    end.record()
+    torch.cuda.synchronize()
+    return y.detach(), aux.detach(), dict(zip(wrt, grads)), \
+        start.elapsed_time(end)
+
+
+def _shard_moe(mesh, mods):
+    """Mixtral-8x7B at full width, SHARD_MOE_DEPTH layer, experts over the
+    all-to-all: a warm-up step and a counted one through
+    ``build_sharded_train``; then the MoE layer at the step's shape, the
+    a2a against the dense ``moe_apply`` (y, aux, every gradient) and the
+    a2a's gmm against its plain version -> (the counted step's launches,
+    the record)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data import DataPipeline
+    from repro_torch.kernels import moe_gmm as gmm_mod
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import init_train_state
+    from repro_torch.launch.train import build_sharded_train, train_exec_config
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.parallel.moe_a2a import moe_apply_a2a
+
+    cfg = dataclasses.replace(get_config(SHARD_MOE_ARCH),
+                              n_layers=SHARD_MOE_DEPTH)
+    m = cfg.moe
+    ex = dataclasses.replace(train_exec_config(cfg, torch.device("cuda")),
+                             moe_impl="a2a")
+    shape = ShapeConfig("train", "train", TRAIN_SEQ_SHARD, TRAIN_BATCH)
+    pipe = DataPipeline(cfg, shape, SEED, ex=ex)
+    step, place = build_sharded_train(cfg, ex, mesh, shape)
+    torch.cuda.reset_peak_memory_stats()
+    state = place(init_train_state(cfg, ex, SEED))
+    n_params = sum(p.numel() for p in state.model.parameters())
+    state, warm_losses, warm_ms = _timed_steps(step, state,
+                                               [pipe.batch_at(0)])
+    for mod in mods.values():
+        mod.launches = 0
+    state, losses, ms = _timed_steps(step, state, [pipe.batch_at(1)])
+    launches = {name: mod.launches for name, mod in mods.items()}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    expected = expected_train_launches(cfg, TRAIN_SEQ_SHARD)
+    check(launches == expected, f"shard {cfg.name} a2a: launches {launches}, "
+          f"expected {expected}")
+    check(all(math.isfinite(v) for v in warm_losses + losses),
+          f"shard {cfg.name} a2a: finite losses")
+    del state, step
+    torch.cuda.empty_cache()
+
+    # the layer: one model rank holds every expert; the a2a's capacity is
+    # the dense one's, and both run the bf16 wgmma kernel at block_t 128
+    t = TRAIN_BATCH * TRAIN_SEQ_SHARD
+    cap_send = max(8, -(-int(t * m.top_k * m.capacity_factor) // 8) * 8)
+    cap_exp = max(8, -(-cap_send // m.n_experts // 8) * 8)
+    cap = moe_mod.capacity(t, m)
+    bt = moe_mod.block_t_for(cap)
+    check(cap_exp == cap and bt == 128 and
+          gmm_mod.kernel_for(torch.bfloat16, bt) == "wgmma",
+          f"shard: cap_exp {cap_exp}, capacity {cap}, block_t {bt}")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    layer = moe_mod.MoE(cfg.d_model, m, device="cuda", dtype=torch.bfloat16)
+    with torch.no_grad():
+        for p in layer.parameters():
+            p.normal_(0.0, p.shape[-2] ** -0.5 if p.dim() == 3
+                      else p.shape[-1] ** -0.5, generator=gen)
+    h = torch.randn((TRAIN_BATCH, TRAIN_SEQ_SHARD, cfg.d_model),
+                    generator=gen, device="cuda").to(torch.bfloat16)
+    g = torch.randn(h.shape, generator=gen, device="cuda")
+    dense = _moe_layer_grads(
+        lambda mo, x: moe_mod.moe_apply(mo, x, m, with_aux=True),
+        layer, h, g)
+    for mod in mods.values():
+        mod.launches = 0
+    a2a = _moe_layer_grads(
+        lambda mo, x: moe_apply_a2a(mo, x, m, ex, mesh), layer, h, g)
+    layer_gmm = mods["moe_gmm"].launches
+    check(layer_gmm == 6, f"shard: the a2a layer's gmm launches {layer_gmm}"
+          f" (3 forward, 3 dx)")
+    cmp = {"y": _max_diff(a2a[0], dense[0]),
+           "aux": _max_diff(a2a[1], dense[1]),
+           **{f"d{k}": _max_diff(a2a[2][k], dense[2][k]) for k in dense[2]}}
+    bad = {k: v for k, v in cmp.items() if v[2] > SHARD_MOE_RTOL}
+    check(not bad, f"shard: the a2a layer vs the dense one: {bad}")
+    plain_gmm = ops.moe_gmm
+    try:
+        ops.moe_gmm = lambda x, w, ids, *, block_t: \
+            gmm_mod.moe_gmm_plain(x, w, ids, block_t)
+        with torch.no_grad():
+            y_plain, _ = moe_apply_a2a(layer, h, m, ex, mesh)
+    finally:
+        ops.moe_gmm = plain_gmm
+    vs_plain = _max_diff(a2a[0], y_plain)
+    check(vs_plain[2] <= GMM_TOL[torch.bfloat16], f"shard: the a2a layer's "
+          f"gmm vs its plain version {vs_plain}")
+    layer_ms = {"a2a_fwd_bwd_ms": a2a[3], "dense_fwd_bwd_ms": dense[3]}
+    del layer, dense, a2a, y_plain
+    torch.cuda.empty_cache()
+    return launches, {
+        "model": cfg.name, "layers": cfg.n_layers,
+        "full_depth": get_config(SHARD_MOE_ARCH).n_layers,
+        "params_b": n_params / 1e9, "moe_impl": "a2a", "batch": TRAIN_BATCH,
+        "seq": TRAIN_SEQ_SHARD, "warmup_step_ms": warm_ms,
+        "step_ms": ms[0], "losses": warm_losses + losses,
+        "peak_mem_gb": peak, "launches": launches,
+        "layer": {"cap_exp": cap_exp, "capacity": cap, "block_t": bt,
+                  "gmm_launches": layer_gmm, **layer_ms, "vs_dense": {
+                      k: {"bit_for_bit": v[0], "max_abs_diff": v[1],
+                          "rel_diff": v[2]} for k, v in cmp.items()},
+                  "y_vs_plain_gmm": {"max_abs_diff": vs_plain[1],
+                                     "rel_diff": vs_plain[2]}}}
+
+
+def phase_shard():
+    """The sharded trainer (``launch.train.build_sharded_train``) on a
+    one-rank NCCL (1, 1) mesh: TinyLlama-1.1B at full width and depth
+    against ``make_train_step`` from the same init and batches, and
+    Mixtral-8x7B at full width, one layer, experts over the all-to-all
+    with the hand gmm kernel.  Returns the sharded steps' launches (every
+    count set to 0 just before each, read just after)."""
+    import tempfile
+
+    import torch.distributed as dist
+    t_phase = time.perf_counter()
+    mods = _kernel_modules()
+    with tempfile.TemporaryDirectory() as tmp:
+        mesh = _one_rank_mesh(os.path.join(tmp, "store"))
+        try:
+            dense_launches, dense = _shard_dense(mesh, mods)
+            moe_launches, moe = _shard_moe(mesh, mods)
+            world = dist.get_world_size()
+        finally:
+            dist.destroy_process_group()
+    launches = {k: dense_launches[k] + moe_launches[k] for k in mods}
+    log("shard", {"card": card_line(), "world_size": world,
+                  "mesh": {"data": 1, "model": 1}, "backend": "nccl",
+                  "dense": dense, "moe": moe, "launches": launches,
+                  "phase_wall_s": time.perf_counter() - t_phase})
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# --ranks: the sharded trainer across the cards of one host, under
+# ``torchrun --nproc-per-node N chip_smoke.py --ranks``
+# ---------------------------------------------------------------------------
+RANKS_STEPS = 3
+RANKS_DENSE = "tinyllama-1.1b"
+RANKS_MOE, RANKS_MOE_ORACLE_DEPTH, RANKS_MOE_DEPTH = "mixtral-8x7b", 1, 2
+# bf16 products: each rank's weight gradient is rounded to bf16 over its
+# own rows (2^-8 of a partial) before the ranks' float32 mean, one card's
+# over all rows; the forward's products tile 2 rows a rank as 8 alike
+RANKS_LOSS_RTOL = 1e-3
+RANKS_GRAD_REL_L2 = 1e-2
+
+
+def _ranks_steps(step, state, batches, device):
+    """-> (state, losses, each step's ms: every rank's wall, from a
+    barrier to its step's end on its device)."""
+    import torch.distributed as dist
+    losses, ms = [], []
+    for b in batches:
+        dist.barrier()
+        t0 = time.perf_counter()
+        state, m = step(state, b)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(m["loss"].item())
+    return state, losses, ms
+
+
+def _grads_full(state) -> dict:
+    """Every parameter's gradient, gathered whole (a collective), on the
+    host."""
+    return {n: p.grad.full_tensor().float().cpu()
+            for n, p in state.model.named_parameters()}
+
+
+def _ranks_case(cfg, ex, shape, mesh_shape, device, oracle_accum=None):
+    """``build_sharded_train`` on a ``mesh_shape`` mesh: step 1, its
+    gradients gathered, steps 2..RANKS_STEPS; with ``oracle_accum``, rank
+    0 then runs ``make_train_step`` (that accum) on one device from the
+    same init and batches: the losses and step 1's gradients against it.
+    -> this rank's record."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.data import DataPipeline
+    from repro_torch.launch.steps import init_train_state, make_train_step
+    from repro_torch.launch.train import build_sharded_train
+    rank = dist.get_rank()
+    cuda = device.type == "cuda"
+    mesh = init_device_mesh(device.type, mesh_shape,
+                            mesh_dim_names=("data", "model"))
+    pipe = DataPipeline(cfg, shape, SEED, ex=ex)
+    batches = [pipe.batch_at(i) for i in range(RANKS_STEPS)]
+    step, place = build_sharded_train(cfg, ex, mesh, shape)
+    mods = _kernel_modules()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(device)
+    state = place(init_train_state(cfg, ex, SEED))
+    params = dict(state.model.named_parameters())
+    full_numel = sum(p.numel() for p in params.values())
+    local_numel = sum(p.to_local().numel() for p in params.values())
+    for m in mods.values():
+        m.launches = 0
+    state, losses, ms = _ranks_steps(step, state, batches[:1], device)
+    grads = _grads_full(state)
+    state, more, more_ms = _ranks_steps(step, state, batches[1:], device)
+    launches = {n: m.launches for n, m in mods.items()}
+    rec = {"mesh": list(mesh_shape), "losses": losses + more,
+           "step_ms": ms + more_ms,
+           "peak_mem_gb": torch.cuda.max_memory_allocated(device) / 1e9
+           if cuda else None,
+           "state_gb": 12 * local_numel / 1e9,
+           "state_gb_one_device": 12 * full_numel / 1e9,
+           "launches": launches}
+    if cuda:
+        expected = {k: RANKS_STEPS * n for k, n in
+                    expected_train_launches(cfg, shape.seq_len).items()}
+        check(launches == expected, f"ranks {cfg.name} rank {rank}: launches "
+              f"{launches}, expected {expected}")
+    check(all(math.isfinite(v) for v in rec["losses"]),
+          f"ranks {cfg.name}: finite losses {rec['losses']}")
+    del state, params
+    if cuda:
+        torch.cuda.empty_cache()
+    if oracle_accum is not None and rank == 0:
+        one = init_train_state(cfg, ex, SEED)
+        one_step = make_train_step(cfg, ex, accum=oracle_accum)
+        one, one_losses, one_ms = _ranks_steps_local(one_step, one,
+                                                     batches[:1], device)
+        # .grad keeps the microbatches' sum; the step divides it by accum
+        one_grads = {n: p.grad.float().cpu() / oracle_accum
+                     for n, p in one.model.named_parameters()}
+        one, more, more_ms = _ranks_steps_local(one_step, one, batches[1:],
+                                                device)
+        one_losses += more
+        errs = {n: float(torch.linalg.norm(grads[n] - one_grads[n])
+                         / max(float(torch.linalg.norm(one_grads[n])),
+                               1e-30)) for n in grads}
+        worst = max(errs, key=errs.get)
+        gap = max(abs(a - b) / abs(b) for a, b in zip(rec["losses"],
+                                                      one_losses))
+        rec.update(one_device_losses=one_losses, one_device_ms=one_ms + more_ms,
+                   one_device_accum=oracle_accum, max_loss_rel_gap=gap,
+                   worst_grad=worst, worst_grad_rel_l2=errs[worst],
+                   mean_grad_rel_l2=sum(errs.values()) / len(errs))
+        check(gap <= RANKS_LOSS_RTOL, f"ranks {cfg.name}: losses "
+              f"{rec['losses']} vs one device's {one_losses}")
+        check(errs[worst] <= RANKS_GRAD_REL_L2, f"ranks {cfg.name}: step 1's "
+              f"gradient of {worst} {errs[worst]} from one device's")
+        del one
+        if cuda:
+            torch.cuda.empty_cache()
+    dist.barrier()
+    return rec
+
+
+def _ranks_steps_local(step, state, batches, device):
+    """``_ranks_steps`` on one rank alone (no barrier)."""
+    losses, ms = [], []
+    for b in batches:
+        t0 = time.perf_counter()
+        state, m = step(state, b)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(m["loss"].item())
+    return state, losses, ms
+
+
+def ranks_main(argv) -> int:
+    """The sharded trainer on every rank of a torchrun group (NCCL on the
+    cards, one a rank; ``--device cpu --reduced`` runs it on gloo over
+    the reduced configs): TinyLlama-1.1B at full depth on a (world, 1)
+    mesh against ``make_train_step`` on rank 0's card; Mixtral-8x7B at
+    full width, 1 layer, a2a on (world, 1) against one card's
+    ``make_train_step`` with accum = world (each microbatch routed on its
+    own, as each data rank's tile is, and ``cap_exp`` = ``capacity()``
+    there), then 2 layers on (world / 2, 2), the all-to-all between the
+    cards.  Rank 0 prints each case's every rank's numbers."""
+    import argparse
+
+    import torch.distributed as dist
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--ranks", action="store_true")
+    ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    ap.add_argument("--reduced", action="store_true")
+    args = ap.parse_args(argv)
+    cuda = args.device == "cuda"
+    if cuda and not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    # fails outside a checkout of the repo
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.train import train_exec_config
+    rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+    device = torch.device("cuda", int(os.environ["LOCAL_RANK"])) if cuda \
+        else torch.device("cpu")
+    if cuda:
+        torch.cuda.set_device(device)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    else:
+        torch.set_num_threads(1)
+    dist.init_process_group("nccl" if cuda else "gloo",
+                            device_id=device if cuda else None)
+    t0 = time.perf_counter()
+    try:
+        seq = 16 if args.reduced else TRAIN_SEQ_SHARD
+
+        def config(arch, depth=None):
+            cfg = get_config(arch)
+            cfg = cfg.reduced() if args.reduced else cfg
+            if depth is not None:
+                cfg = dataclasses.replace(cfg, n_layers=depth)
+            ex = train_exec_config(cfg, device)
+            return cfg, ex, ShapeConfig("train", "train", seq, TRAIN_BATCH)
+
+        cases = {}
+        cfg, ex, shape = config(RANKS_DENSE)
+        cases["dense"] = _ranks_case(cfg, ex, shape, (world, 1), device,
+                                     oracle_accum=1)
+        cfg, ex, shape = config(RANKS_MOE, RANKS_MOE_ORACLE_DEPTH)
+        ex = dataclasses.replace(ex, moe_impl="a2a")
+        cases["moe_data"] = _ranks_case(cfg, ex, shape, (world, 1), device,
+                                        oracle_accum=world)
+        if world % 2 == 0:
+            cfg, ex, shape = config(RANKS_MOE, RANKS_MOE_DEPTH)
+            ex = dataclasses.replace(ex, moe_impl="a2a")
+            cases["moe_a2a"] = _ranks_case(cfg, ex, shape, (world // 2, 2),
+                                           device)
+        every = [None] * world
+        dist.all_gather_object(every, cases)
+        names = [None] * world
+        dist.all_gather_object(names, torch.cuda.get_device_name(device)
+                               if cuda else "cpu")
+    finally:
+        dist.destroy_process_group()
+    if rank == 0:
+        for case in every[0]:
+            log("ranks", {"case": case, "world_size": world,
+                          "reduced": args.reduced, "devices": names,
+                          "by_rank": [e[case] for e in every]})
+        log("done", f"ranks in {time.perf_counter() - t0:.1f} s")
+        if cuda:
+            print(card_line())
+        print(json.dumps({"ok": True, "ranks": world}))
+    return 0
+
+
 # the serving paths: arch, serve depth (None: the config's), serve
 # prompt, depth of the card-vs-CPU check, its prompt
 PATHS = (
@@ -2596,6 +3099,9 @@ def main() -> int:
     by_path["resume"] = phase_resume()
     log("done", f"validate and resume phases in "
         f"{time.perf_counter() - t_new:.1f} s")
+    t_new = time.perf_counter()
+    by_path["shard"] = phase_shard()
+    log("done", f"shard phase in {time.perf_counter() - t_new:.1f} s")
 
     kernels = []
     for name, rec in records.items():
@@ -2635,4 +3141,5 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(ranks_main(sys.argv[1:]) if "--ranks" in sys.argv[1:]
+             else main())

@@ -6,6 +6,12 @@ Layout per step, the reference's:
   <dir>/step_<N>/arrays.npz        — flat leaves as raw bytes
   <dir>/step_<N>/COMMITTED         — atomic-commit marker
 
+A sharded state's DTensor leaves are written whole: every rank joins
+each leaf's gather (a collective), rank 0 alone copies it to the host
+and writes, the other ranks drop it at once.  ``restore`` reads one leaf
+at a time, cuts each rank's block out of it on the host and copies only
+that block to the rank's device.
+
 A tree is any nesting of dicts, lists, tuples and NamedTuples (the port's
 ``TrainState(model, opt)``: ``AdamWState(step, m, v)``) whose leaves are
 tensors, numpy arrays or Python numbers; an ``nn.Module`` stands for its
@@ -25,11 +31,13 @@ import json
 import shutil
 import threading
 import time
+from contextlib import contextmanager
 from pathlib import Path
 from typing import Any, List, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor, Shard
 
 # torch dtypes numpy has no type for: their bits travel in this numpy type
 _BITS = {torch.bfloat16: (np.uint16, torch.uint16)}
@@ -59,10 +67,26 @@ def _flatten_with_names(tree, prefix: str = "") -> List[Tuple[str, Any]]:
     return out
 
 
+def _rank() -> int:
+    import torch.distributed as dist
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+def _barrier() -> None:
+    """Every rank of the default process group meets here (none without
+    one, or with one rank)."""
+    import torch.distributed as dist
+    if dist.is_initialized() and dist.get_world_size() > 1:
+        dist.barrier()
+
+
 def _to_host(leaf) -> Tuple[np.ndarray, str]:
-    """A COPY of ``leaf`` in host memory as numpy, and its dtype's name."""
+    """A COPY of ``leaf`` in host memory as numpy, and its dtype's name
+    (a DTensor's full tensor, gathered from every rank)."""
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach()
+        if isinstance(t, DTensor):
+            t = t.full_tensor()
         if t.dtype in _BITS:
             bits = t.view(_BITS[t.dtype][1])
             # .cpu() of a CPU tensor is the tensor itself: clone it
@@ -82,11 +106,18 @@ def _from_host(arr: np.ndarray, dtype: str) -> torch.Tensor:
     return torch.from_numpy(arr)
 
 
-def _host_leaves(tree, prefix: str = "") -> List[Tuple[str, np.ndarray,
-                                                     str]]:
-    """``[(name, host copy, dtype name)]`` of every leaf of ``tree``."""
-    return [(name, *_to_host(leaf))
-            for name, leaf in _flatten_with_names(tree, prefix)]
+def _host_leaves(tree, prefix: str = "", keep: bool = True
+                 ) -> List[Tuple[str, np.ndarray, str]]:
+    """``[(name, host copy, dtype name)]`` of every leaf of ``tree``;
+    with ``keep`` False (a rank that does not write) none, though each
+    DTensor leaf is still gathered, the collective every rank joins."""
+    out = []
+    for name, leaf in _flatten_with_names(tree, prefix):
+        if keep:
+            out.append((name, *_to_host(leaf)))
+        elif isinstance(leaf, DTensor):
+            leaf.detach().full_tensor()
+    return out
 
 
 def _write(leaves, path: Path) -> None:
@@ -117,26 +148,48 @@ def save_pytree(tree, path) -> None:
     _write(_host_leaves(tree), Path(path))
 
 
-def _load_arrays(path: Path):
-    """-> ``[(name, numpy array, dtype name)]`` of a committed step."""
+@contextmanager
+def _open_arrays(path: Path):
+    """-> {name: (read, dtype name)} of a committed step, in its order:
+    ``read()`` loads that one leaf's numpy array from the file."""
     if not (path / "COMMITTED").exists():
         raise FileNotFoundError(f"checkpoint {path} not committed")
     manifest = json.loads((path / "manifest.json").read_text())
-    out = []
     with np.load(path / "arrays.npz") as data:
-        for i, (name, shape, dtype) in enumerate(zip(
-                manifest["names"], manifest["shapes"], manifest["dtypes"])):
-            raw = data[f"a{i}"]
+        def reader(i, shape, dtype):
             np_dtype = _BITS[_BY_NAME[dtype]][0] if dtype in _BY_NAME \
                 else np.dtype(dtype)
-            out.append((name, raw.view(np_dtype).reshape(shape), dtype))
-    return out
+            return lambda: data[f"a{i}"].view(np_dtype).reshape(shape)
+        yield {name: (reader(i, shape, dtype), dtype)
+               for i, (name, shape, dtype) in enumerate(zip(
+                   manifest["names"], manifest["shapes"],
+                   manifest["dtypes"]))}
+
+
+def _load_arrays(path: Path):
+    """-> ``[(name, numpy array, dtype name)]`` of a committed step."""
+    with _open_arrays(path) as leaves:
+        return [(name, read(), dtype)
+                for name, (read, dtype) in leaves.items()]
+
+
+def _local_block(arr: np.ndarray, dt) -> np.ndarray:
+    """The block of the full array ``arr`` that this rank's DTensor
+    ``dt`` holds: each ``Shard(d)`` of its placements an even split of
+    dim d over that mesh axis, major first in mesh order."""
+    mesh = dt.device_mesh
+    for i, plc in enumerate(dt.placements):
+        if isinstance(plc, Shard):
+            step = arr.shape[plc.dim] // mesh.size(i)
+            lo = mesh.get_local_rank(i) * step
+            arr = arr[(slice(None),) * plc.dim + (slice(lo, lo + step),)]
+    return arr
 
 
 def _fill(template, values: dict, prefix: str = ""):
-    """``template`` with every leaf taken from ``values`` (name -> (array,
-    dtype)): tensors are overwritten in place and returned, numbers and
-    arrays are replaced."""
+    """``template`` with every leaf taken from ``values`` (name -> (read,
+    dtype), ``_open_arrays``): tensors are overwritten in place and
+    returned, numbers and arrays are replaced."""
     if isinstance(template, torch.nn.Module):
         for n, p in template.named_parameters():
             _fill(p, values, f"{prefix}{n}/")
@@ -153,13 +206,20 @@ def _fill(template, values: dict, prefix: str = ""):
     name = prefix.rstrip("/")
     if name not in values:
         raise KeyError(f"checkpoint has no leaf {name!r}")
-    arr, dtype = values[name]
+    read, dtype = values[name]
+    arr = read()
     if isinstance(template, torch.Tensor):
         if tuple(arr.shape) != tuple(template.shape):
             raise ValueError(f"shape mismatch at {name}: {arr.shape} vs "
                              f"{tuple(template.shape)}")
         with torch.no_grad():
-            template.copy_(_from_host(arr, dtype))
+            if isinstance(template, DTensor):
+                local = template.to_local()
+                block = np.ascontiguousarray(_local_block(arr, template))
+                del arr
+                local.copy_(_from_host(block, dtype))
+            else:
+                template.copy_(_from_host(arr, dtype))
         return template
     if isinstance(template, np.ndarray):
         return arr.astype(template.dtype)
@@ -170,8 +230,8 @@ def restore_pytree(template, path):
     """Load the tree at ``path`` into the structure of ``template``: its
     tensors are overwritten in place (``copy_``, on their device and in
     their dtype)."""
-    values = {n: (a, d) for n, a, d in _load_arrays(Path(path))}
-    return _fill(template, values)
+    with _open_arrays(Path(path)) as values:
+        return _fill(template, values)
 
 
 class CheckpointManager:
@@ -204,10 +264,14 @@ class CheckpointManager:
 
     # ------------------------------------------------------------------
     def wait(self):
-        """Join the write in flight; re-raise its failure here."""
+        """Join the write in flight; re-raise its failure here.  In a
+        process group every rank calls it and leaves once rank 0's write
+        has committed, so every rank then reads the same steps on disk
+        (a resume on another rank must not miss the latest)."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        _barrier()
         if self._error is not None:
             err, self._error = self._error, None
             raise err
@@ -216,10 +280,13 @@ class CheckpointManager:
         """Copy ``tree`` to host memory NOW, write it in the background
         (or before returning, with ``async_write`` False).  ``last_save``
         holds the step, the bytes, the copy's seconds and, once the write
-        has ended, its seconds."""
+        has ended, its seconds.  In a process group every rank calls it
+        (a DTensor leaf is gathered) and rank 0 alone copies and writes:
+        another rank's ``bytes`` are 0."""
         t0 = time.perf_counter()
-        leaves = _host_leaves(tree, "state/") \
-            + _host_leaves(extra or {}, "extra/")
+        keep = _rank() == 0
+        leaves = _host_leaves(tree, "state/", keep) \
+            + _host_leaves(extra or {}, "extra/", keep)
         info = {"step": step, "bytes": sum(a.nbytes for _, a, _ in leaves),
                 "copy_s": time.perf_counter() - t0}
 
@@ -234,24 +301,27 @@ class CheckpointManager:
 
         self.wait()
         self.last_save = info
-        if self.async_write:
+        if keep and self.async_write:
             self._thread = threading.Thread(target=write, daemon=True)
             self._thread.start()
-        else:
+        elif keep:
             write()
+        if not self.async_write:
             self.wait()
 
     def restore(self, step: int, template: Any):
         """-> (``template`` with the step's state copied into it, the
         ``extra`` dict saved beside it)."""
-        values, extra = {}, {}
-        for name, arr, dtype in _load_arrays(self._step_dir(step)):
-            if name.startswith("state/"):
-                values[name[len("state/"):]] = (arr, dtype)
-            elif name.startswith("extra/"):
-                extra[name[len("extra/"):]] = \
-                    arr.item() if arr.shape == () else arr
-        return _fill(template, values), extra
+        with _open_arrays(self._step_dir(step)) as leaves:
+            values, extra = {}, {}
+            for name, (read, dtype) in leaves.items():
+                if name.startswith("state/"):
+                    values[name[len("state/"):]] = (read, dtype)
+                elif name.startswith("extra/"):
+                    arr = read()
+                    extra[name[len("extra/"):]] = \
+                        arr.item() if arr.shape == () else arr
+            return _fill(template, values), extra
 
     def _gc(self):
         steps = self.all_steps()

@@ -5,7 +5,10 @@ Each ``csrc/<name>.cu`` is compiled by its own ``nvcc`` into
 ``.gitignore``) and exposes a plain C interface, so no PyTorch header is
 compiled: a build takes seconds.  Nothing is built at import; the first
 launch of a kernel builds it, and ``build_all()`` builds every source at
-once, one ``nvcc`` process per source, all started together.
+once, one ``nvcc`` process per source, all started together.  Each
+process builds into a file of its own and renames it into place, so the
+ranks of a multi-process run, which build together, never load a
+library another one is still writing.
 """
 from __future__ import annotations
 
@@ -38,8 +41,8 @@ def _start(name: str) -> subprocess.Popen:
     if not src.exists():
         raise FileNotFoundError(src)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    out = BUILD_DIR / f"lib{name}.so"
-    return subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", str(out), str(src)],
+    return subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", str(_own(name)),
+                             str(src)],
                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                             text=True)
 
@@ -49,7 +52,15 @@ def _finish(name: str, proc: subprocess.Popen, t0: float) -> None:
     BUILD_LOG[name] = {"seconds": time.perf_counter() - t0, "log": log}
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for csrc/{name}.cu:\n{log}")
-    _LIBS[name] = ctypes.CDLL(str(BUILD_DIR / f"lib{name}.so"))
+    out = BUILD_DIR / f"lib{name}.so"
+    os.replace(_own(name), out)
+    _LIBS[name] = ctypes.CDLL(str(out))
+
+
+def _own(name: str) -> pathlib.Path:
+    """This process's build output, renamed to ``lib<name>.so`` once
+    whole."""
+    return BUILD_DIR / f"lib{name}.{os.getpid()}.so"
 
 
 def build_all(names) -> None:

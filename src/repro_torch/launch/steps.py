@@ -5,6 +5,7 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+from torch.distributed.tensor import DTensor
 from torch.func import functional_call
 
 from repro_torch.configs.base import ModelConfig
@@ -31,14 +32,21 @@ def _call_cast(fn, model: torch.nn.Module, ex: ExecConfig, *args):
     ``ex.compute_dtype``: the module itself when they already are, else
     its parameters cast for this call only.  The caller's module keeps
     its ``param_dtype``, as the reference's parameters do (it casts them
-    inside every call)."""
+    inside every call).  A sharded module (``parallel/fsdp.py``) casts
+    each parameter where it gathers it, so it is called as it is."""
     params = dict(model.named_parameters())
-    if all(p.dtype == ex.compute_dtype for p in params.values()
-           if p.is_floating_point()):
+    if all(p.dtype == ex.compute_dtype or isinstance(p, DTensor)
+           for p in params.values() if p.is_floating_point()):
         return fn(model, *args)
     cast = {f"model.{n}": p.to(ex.compute_dtype) if p.is_floating_point()
             else p for n, p in params.items()}
     return functional_call(_Bound(model, fn), cast, args)
+
+
+def _local(t):
+    """A DTensor's local shard (a view: written in place, it writes the
+    DTensor), any other tensor itself."""
+    return t.to_local() if isinstance(t, DTensor) else t
 
 
 class TrainState(NamedTuple):
@@ -104,14 +112,20 @@ def make_grad_step(cfg: ModelConfig, ex: ExecConfig, *, accum: int = 1):
 
 
 def make_train_step(cfg: ModelConfig, ex: ExecConfig, *, base_lr=3e-4,
-                    warmup=100, total=10000, accum: int = 1):
+                    warmup=100, total=10000, accum: int = 1, group=None):
     """train_step(state, batch) -> (state, metrics): ``make_grad_step``'s
     gradients, divided by ``accum``, then one AdamW update of the
     parameters in place.  Each parameter's ``.grad`` keeps the step's
     summed gradient until the next step; the state's m and v are updated
     in place (``adamw_update_``).  metrics: loss, ce, aux, lr, grad_norm
     (tensors where computed on the device, so that a step does not wait
-    for them)."""
+    for them).
+
+    A sharded state (``launch/train.py::build_sharded_train``: the
+    parameters, m and v DTensors) is updated through its local shards;
+    ``group``, the process group it spans past one rank, sums the
+    clipping norm over every shard (each element counted once) and
+    averages the metrics over its ranks."""
     grad_step = make_grad_step(cfg, ex, accum=accum)
     lr_fn = cosine_schedule(base_lr, warmup, total)
 
@@ -120,12 +134,31 @@ def make_train_step(cfg: ModelConfig, ex: ExecConfig, *, base_lr=3e-4,
         params = dict(state.model.named_parameters())
         with torch.profiler.record_function("train.optimizer"), \
                 torch.no_grad():
-            grads = {n: p.grad if accum == 1 else p.grad / accum
-                     for n, p in params.items()}
-            opt, om = adamw_update_(params, grads, state.opt, lr_fn)
+            grads = {n: _local(p.grad) if accum == 1
+                     else _local(p.grad) / accum for n, p in params.items()}
+            opt = state.opt
+            shards = AdamWState(step=opt.step,
+                                m={n: _local(t) for n, t in opt.m.items()},
+                                v={n: _local(t) for n, t in opt.v.items()})
+            replicas = None
+            if group is not None:
+                from repro_torch.parallel.fsdp import replication
+                replicas = {n: replication(p) for n, p in params.items()}
+            new, om = adamw_update_(
+                {n: _local(p) for n, p in params.items()}, grads, shards,
+                lr_fn, replicas=replicas, group=group)
         metrics = {k: v.detach() if torch.is_tensor(v) else v
                    for k, v in dict(metrics, loss=loss, **om).items()}
-        return TrainState(model=state.model, opt=opt), metrics
+        if group is not None:
+            import torch.distributed as dist
+            world = dist.get_world_size(group)
+            for k, v in metrics.items():
+                if torch.is_tensor(v):
+                    v = v.clone()
+                    dist.all_reduce(v, group=group)
+                    metrics[k] = v / world
+        return TrainState(model=state.model, opt=AdamWState(
+            step=new.step, m=opt.m, v=opt.v)), metrics
 
     return train_step
 

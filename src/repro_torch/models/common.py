@@ -3,6 +3,7 @@
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Any
 
 import torch
 import torch.nn.functional as F
@@ -20,6 +21,13 @@ class ExecConfig:
     # SSD chunk length (ops.ssd cuts it to the sequence length)
     ssd_chunk: int = 128
     device: str = "cuda"
+    # MoE dispatch: 'dense' (capacity buckets on one rank, models/moe.py)
+    # or 'a2a' (the all-to-all over the mesh's model axis,
+    # parallel/moe_a2a.py; needs ``mesh``)
+    moe_impl: str = "dense"
+    # the torch DeviceMesh the step runs on, required when moe_impl ==
+    # "a2a"
+    mesh: Any = None
 
 
 def check_device(device) -> torch.device:

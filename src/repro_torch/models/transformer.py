@@ -26,10 +26,17 @@ class Block(torch.nn.Module):
         else:
             self.mlp = common.MLP(cfg.d_model, cfg.d_ff, cfg.gated_mlp, **kw)
 
-    def ffn(self, h, cfg: ModelConfig, with_aux: bool = False):
+    def ffn(self, h, cfg: ModelConfig, with_aux: bool = False, ex=None):
         """-> (the MLP's or the MoE's output, the router's aux loss with
-        ``with_aux`` and experts, else 0.0)."""
+        ``with_aux`` and experts, else 0.0).  With ``ex.moe_impl ==
+        "a2a"`` and a mesh, the experts run over the mesh's all-to-all,
+        which always computes its aux loss (the reference's
+        ``_layer_train``)."""
         if cfg.moe is not None:
+            if ex is not None and ex.moe_impl == "a2a" \
+                    and ex.mesh is not None:
+                from repro_torch.parallel.moe_a2a import moe_apply_a2a
+                return moe_apply_a2a(self.moe, h, cfg.moe, ex, ex.mesh)
             return moe.moe_apply(self.moe, h, cfg.moe, with_aux=with_aux)
         return common.mlp_apply(self.mlp, h, cfg.gated_mlp), 0.0
 
@@ -91,7 +98,7 @@ class Transformer(torch.nn.Module):
                 norm_eps=cfg.norm_eps, rope=rope, ex=ex)
             x = x + att
             h = common.norm(x, blk.ln2, cfg.norm_eps)
-            y, aux = blk.ffn(h, cfg, with_aux)
+            y, aux = blk.ffn(h, cfg, with_aux, ex)
             x = x + y
             yield i, x, kv, aux
 

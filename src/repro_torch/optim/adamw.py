@@ -36,11 +36,21 @@ def cosine_schedule(base_lr: float, warmup: int, total: int):
     return lr
 
 
-def _global_norm_scale(grads: dict, max_norm: float):
+def _global_norm_scale(grads: dict, max_norm: float, *, replicas=None,
+                       group=None):
     """-> (the global L2 norm of ``grads``, a float32 0-d tensor; the
-    factor that clips it to at most ``max_norm``)."""
-    gnorm = torch.stack([torch.sum(g.float() ** 2)
-                         for g in grads.values()]).sum().sqrt()
+    factor that clips it to at most ``max_norm``).  Sharded: ``grads``
+    are this rank's shards, ``replicas`` {name: ranks holding each of its
+    elements}, and the squares are summed over ``group``'s ranks."""
+    sq = [torch.sum(g.float() ** 2) for g in grads.values()]
+    if replicas is not None:
+        sq = [s / replicas[n] if replicas[n] > 1 else s
+              for s, n in zip(sq, grads)]
+    total = torch.stack(sq).sum()
+    if group is not None:
+        import torch.distributed as dist
+        dist.all_reduce(total, group=group)
+    gnorm = total.sqrt()
     return gnorm, torch.clamp(max_norm / torch.clamp(gnorm, min=1e-12),
                               max=1.0)
 
@@ -54,7 +64,7 @@ def clip_by_global_norm(grads: dict, max_norm: float):
 
 def adamw_update_(params: dict, grads: dict, state: AdamWState, lr_fn, *,
                   b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1,
-                  max_grad_norm=1.0):
+                  max_grad_norm=1.0, replicas=None, group=None):
     """One AdamW update in place: every parameter and its m and v are
     overwritten -> (the state one step on, holding the same m and v
     tensors; {"lr", "grad_norm"}).  It clips each gradient as it reaches
@@ -62,8 +72,11 @@ def adamw_update_(params: dict, grads: dict, state: AdamWState, lr_fn, *,
     the whole state would double its memory (a 3 B-parameter state is
     ~50 GB in float32).  The arithmetic is ``adamw_update``'s, operation
     for operation.  Weight decay applies to every parameter, as in the
-    reference."""
-    gnorm, scale = _global_norm_scale(grads, max_grad_norm)
+    reference.  On local shards of a sharded state, ``replicas`` and
+    ``group`` make the clipping norm the global one
+    (``_global_norm_scale``); the update itself is elementwise."""
+    gnorm, scale = _global_norm_scale(grads, max_grad_norm,
+                                      replicas=replicas, group=group)
     step = state.step + 1
     lr = lr_fn(step)
     b1t = 1.0 - b1 ** step

@@ -1,0 +1,178 @@
+"""A module's parameters as DTensors placed by their specs, gathered where
+the forward reads them (the sharded trainer's runtime,
+``launch/train.py::build_sharded_train``).
+
+``shard_module`` replaces every parameter of a module by a DTensor
+parameter with the placements of its spec (``sharding.placements``), so
+the state's memory is sharded over every axis its spec names.  Reading
+such a parameter as a module attribute gathers it: redistributed to
+``Replicate`` over every axis of more than one rank (an expert's
+``model`` shard stays, under the all-to-all), cast to the compute
+dtype, and handed to the forward as a plain tensor.  Its gradient
+returns into the parameter's own placements: ``Partial("avg")`` on each
+gathered axis, so the data ranks' gradients are averaged and
+reduce-scattered, and the model ranks, which compute the dense blocks
+alike, agree.
+
+Inside ``gathered_forward`` the autograd graph does not keep a gathered
+tensor: each is saved as its parameter and gathered again when the
+backward needs it, so a parameter's full copy lives from its read to
+the end of the op that read it.
+"""
+from __future__ import annotations
+
+import weakref
+from contextlib import contextmanager
+from contextvars import ContextVar
+from typing import Dict, Iterable, Optional
+
+import torch
+
+from repro_torch.parallel.sharding import placements
+
+
+def _is_dtensor(t) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(t, DTensor)
+
+
+def _gather(p, grad: bool = True) -> torch.Tensor:
+    """The full (or model-sharded) tensor of DTensor parameter ``p`` in
+    its compute dtype; with ``grad``, differentiable into ``p``."""
+    target, grad_placements, dtype = p._gather
+    dt = p if grad else p.detach()
+    if tuple(dt.placements) != grad_placements:
+        # the redistribute's backward takes the gradient from
+        # ``grad_placements`` to the parameter's (a reduction)
+        dt = dt.redistribute(dt.device_mesh, target)
+    full = dt.to_local(grad_placements=grad_placements if grad else None)
+    if dtype is not None and full.is_floating_point() and full.dtype != dtype:
+        full = full.to(dtype)
+    return full
+
+
+# inside ``gathered_forward``: data_ptr of a gathered tensor's storage ->
+# (weakref to it, its parameter)
+_SCOPE: ContextVar[Optional[dict]] = ContextVar("gathered_forward",
+                                               default=None)
+
+
+def _read(self, name):
+    """``__getattr__`` of a sharded module: a DTensor parameter is read
+    gathered (``_gather``), anything else as ``nn.Module`` reads it."""
+    params = self.__dict__.get("_parameters")
+    if params is not None and _is_dtensor(params.get(name)):
+        full = _gather(params[name])
+        live = _SCOPE.get()
+        if live is not None:
+            with torch.no_grad():
+                local = params[name].to_local()
+            ptr = full.untyped_storage().data_ptr()
+            if ptr != local.untyped_storage().data_ptr():  # a copy
+                live[ptr] = (weakref.ref(full), params[name])
+        return full
+    return torch.nn.Module.__getattr__(self, name)
+
+
+_CLASSES: Dict[type, type] = {}
+
+
+def _sharded_class(cls: type) -> type:
+    if cls not in _CLASSES:
+        _CLASSES[cls] = type(f"Sharded{cls.__name__}", (cls,),
+                             {"__getattr__": _read})
+    return _CLASSES[cls]
+
+
+def shard_module(model: torch.nn.Module, specs: Dict[str, tuple], mesh, *,
+                 compute_dtype: Optional[torch.dtype] = None,
+                 model_sharded: Iterable[str] = ()) -> torch.nn.Module:
+    """Place every parameter of ``model`` (whole and equal on every rank)
+    on ``mesh`` by ``specs`` {name: spec}, in place -> ``model``.  A
+    parameter named in ``model_sharded`` keeps its ``model`` shard when
+    read (the all-to-all's experts); every other axis is gathered."""
+    from torch.distributed.tensor import (Partial, Replicate,
+                                          distribute_tensor)
+    names = list(mesh.mesh_dim_names)
+    keep = set(model_sharded)
+    for mod_name, mod in list(model.named_modules()):
+        own = [(n, p) for n, p in mod._parameters.items() if p is not None]
+        for pname, p in own:
+            full_name = f"{mod_name}.{pname}" if mod_name else pname
+            plc = placements(specs[full_name], mesh)
+            # gathered over every axis of more than one rank (a one-rank
+            # axis holds the whole dim already: no collective there)
+            gather = [mesh.size(i) > 1 and not (full_name in keep
+                                                and a == "model")
+                      for i, a in enumerate(names)]
+            target = [Replicate() if g else plc[i]
+                      for i, g in enumerate(gather)]
+            grads = [Partial("avg") if g else plc[i]
+                     for i, g in enumerate(gather)]
+            dt = distribute_tensor(p.detach(), mesh, plc, src_data_rank=None)
+            new = torch.nn.Parameter(dt, requires_grad=p.requires_grad)
+            new._gather = (tuple(target), tuple(grads), compute_dtype)
+            mod._parameters[pname] = new
+        if own:
+            mod.__class__ = _sharded_class(type(mod))
+    return model
+
+
+class _Saved:
+    __slots__ = ("param", "size", "stride", "offset")
+
+    def __init__(self, param, t):
+        self.param = param
+        self.size, self.stride = t.size(), t.stride()
+        self.offset = t.storage_offset()
+
+
+@contextmanager
+def gathered_forward():
+    """The scope of a sharded forward and backward: the graph saves each
+    gathered parameter as the parameter, gathered again on use."""
+    live: Dict[int, tuple] = {}
+    # the backward's gathers, alive while the graph holds them
+    regathered = weakref.WeakValueDictionary()
+
+    def pack(t):
+        try:
+            ptr = t.untyped_storage().data_ptr()
+        except (RuntimeError, NotImplementedError):
+            return t
+        entry = live.get(ptr)
+        if entry is None:
+            return t
+        full = entry[0]()
+        if full is None or full.untyped_storage().data_ptr() != ptr \
+                or full.dtype != t.dtype:
+            live.pop(ptr, None)         # stale: the storage was freed
+            return t
+        return _Saved(entry[1], t)
+
+    def unpack(x):
+        if not isinstance(x, _Saved):
+            return x
+        full = regathered.get(id(x.param))
+        if full is None:
+            with torch.no_grad():
+                full = _gather(x.param, grad=False)
+            regathered[id(x.param)] = full
+        return full.as_strided(x.size, x.stride, x.offset)
+
+    token = _SCOPE.set(live)
+    try:
+        with torch.autograd.graph.saved_tensors_hooks(pack, unpack):
+            yield
+    finally:
+        _SCOPE.reset(token)
+
+
+def replication(p) -> int:
+    """How many ranks hold each element of DTensor ``p``."""
+    from torch.distributed.tensor import Replicate
+    n = 1
+    for plc, size in zip(p.placements, p.device_mesh.shape):
+        if isinstance(plc, Replicate):
+            n *= size
+    return n

@@ -255,6 +255,63 @@ def test_card_fit_faults():
     assert any("never bent" in f for f in faults)
 
 
+def test_card_flash_bwd_top_points_fit_their_median(monkeypatch):
+    """ROADMAP C15: on the card the flash backward's grid keeps the
+    reference's points first, and its top three points are each timed
+    three times (one warm-up) and fitted by their median; every other
+    point, kernel and the CPU time once."""
+    from repro.obs import profile as ref_prof
+    from repro_torch.obs import bench
+    from repro_torch.obs import profile as prof
+    name = "flash_attention_bwd"
+    for quick in (False, True):
+        g = prof._grids(quick, "cuda")[name]
+        ref = ref_prof._grids(False)[name]
+        assert g[:len(ref) - quick] == ref[:len(ref) - quick]
+        assert [prof._repeats(name, x, quick, "cuda") for x in g] == \
+            [1] * (len(g) - 3) + [3] * 3
+        assert all(prof._repeats(name, x, quick, "cpu") == 1 for x in g)
+    for other in prof.PROFILE_KERNELS:
+        if other != name:
+            assert {prof._repeats(other, x, False, "cuda")
+                    for x in prof._grids(False, "cuda")[other]} == {1}
+    calls, readings = [], iter([3.0e-3, 1.0e-3, 2.0e-3])
+
+    def fake_time_fn(fn, *args, reps, warmup):
+        calls.append((reps, warmup))
+        return next(readings)
+
+    monkeypatch.setattr(bench, "time_fn", fake_time_fn)
+    t, times = prof._time_point(None, (), 3, 3)
+    assert t == 2.0e-3 and times == [3.0e-3, 1.0e-3, 2.0e-3]
+    assert calls == [(3, 1), (3, 0), (3, 0)]
+
+
+def test_fit_of_median_rows_stays_near_the_rows_level():
+    """Rows like the card's flash backward (a rate ``level * x / (x +
+    8000)``, PRs 26-28's m_half range, 8% noise a timing): with the top
+    three points the medians of three timings, the fitted peak stays
+    within 1.4x the level the rows rise to, and extrapolates less than
+    single timings do, over 300 draws of the noise."""
+    import numpy as np
+    from repro_torch.calib import CARD_PEAKS, fit_saturation
+    xs = [128, 256, 512, 1024, 2048, 4096, 8192, 16384]
+    level = 1.0e13
+    worst = {}
+    for repeats in (1, 3):
+        rng = np.random.default_rng(5)
+        worst[repeats] = 0.0
+        for _ in range(300):
+            rates = [float(np.median(
+                level * x / (x + 8000.0) * (1 + 0.08 * rng.standard_normal(
+                    repeats if i >= len(xs) - 3 else 1))))
+                for i, x in enumerate(xs)]
+            peak, _, _ = fit_saturation(xs, rates)
+            worst[repeats] = max(worst[repeats], peak / level)
+    assert worst[3] < 1.4 and worst[3] < worst[1]
+    assert worst[3] * level < CARD_PEAKS["compute"]
+
+
 def test_cli_calibrate_on_the_card_refuses_faulty_fits(tmp_path,
                                                         monkeypatch,
                                                         capsys):
