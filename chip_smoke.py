@@ -133,6 +133,16 @@ Phases, in order; any failure raises and exits non-zero:
    kernel): the a2a against the dense ``moe_apply`` (y, aux, every
    gradient) and the a2a's gmm against its plain version.  Prints step
    ms, peak memory, launches and the world size.
+12. dryrun - ``python -m repro_torch.launch.dryrun`` in two subprocesses
+   (120 s each from their start), started together before the train
+   phase, whose steps keep the card busy, and read after ``shard``:
+   TinyLlama-1.1B ``train_4k`` on the single-pod (16, 16) mesh of a
+   256-rank fake group, over fake CUDA tensors and over fake CPU
+   tensors.  The all-gather and reduce-scatter wire bytes must equal the
+   sums ``param_specs`` gives (to 1e-9 relative), the two records must
+   agree in every FLOP, byte and count, and neither may launch a kernel.
+   Prints each cell's record and wall time.  A failure prints
+   ``[fail] dryrun: <message>``.
 
 The last lines are the card's name and power limit (nvidia-smi), one JSON
 line ``{"kernels": [...]}`` and ``{"ok": true, "device": {...}}``.
@@ -161,6 +171,7 @@ import shutil
 import signal
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
@@ -345,25 +356,6 @@ def build_report(ptxas_log: str, lib: pathlib.Path) -> dict:
 # ---------------------------------------------------------------------------
 # 2. kernels against their plain versions
 # ---------------------------------------------------------------------------
-def _attn_live_pairs(sq: int, sk: int, window, causal: bool) -> int:
-    """(query, key) pairs the mask leaves, per (batch, head): query i at
-    position i + Sk - Sq, as in the kernel."""
-    r = torch.arange(sq, dtype=torch.int64) + (sk - sq)
-    hi = r.clamp(max=sk - 1) if causal else torch.full_like(r, sk - 1)
-    lo = (r - window + 1).clamp(min=0) if window else torch.zeros_like(r)
-    return int((hi - lo + 1).clamp(min=0).sum())
-
-
-def _attn_live_keys(sq: int, sk: int, window, causal: bool) -> int:
-    """Keys some query attends to, per (batch, KV head): the union of the
-    rows' ranges, which is one range (neighbouring rows' ranges touch)."""
-    r = torch.arange(sq, dtype=torch.int64) + (sk - sq)
-    hi = r.clamp(max=sk - 1) if causal else torch.full_like(r, sk - 1)
-    lo = (r - window + 1).clamp(min=0) if window else torch.zeros_like(r)
-    live = hi >= lo
-    return int(hi[live].max() - lo[live].min() + 1) if live.any() else 0
-
-
 def _attn_mask(sq: int, sk: int, window, causal: bool) -> torch.Tensor:
     """The (Sq, Sk) boolean mask of the kernel (True: attend), query i at
     position i + Sk - Sq, on the card."""
@@ -444,6 +436,7 @@ FLASH_TOL = {torch.bfloat16: (2e-2, 1e-3), torch.float32: (1e-4, 1e-4)}
 
 
 def phase_flash(gen):
+    from repro_torch.kernels import cost
     from repro_torch.kernels import flash_attention as fa
     timed = {}
     cross_gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
@@ -470,12 +463,10 @@ def phase_flash(gen):
               f"flash {name}: kernel vs plain {err} (tol {o_tol}), lse "
               f"{lse_err} (tol {lse_tol})")
         if name in FLASH_TIMED:
-            flops = 4.0 * d * _attn_live_pairs(sq, sk, win, causal) * b * hq
             # K and V over the keys some query needs (all of them at
             # Sq == Sk; the last Sq + window - 1 under an offset window)
-            kv = 2 * b * hkv * _attn_live_keys(sq, sk, win, causal) * d
-            nbytes = (2 * q.numel() + kv) * q.element_size() \
-                + lse.numel() * 4
+            flops, nbytes = cost.flash_fwd_cost(b, hq, hkv, sq, sk, d, win,
+                                                causal, q.element_size())
             rec["bound_ms"], rec["bound_by"] = bound_ms(flops, nbytes, dt)
             rec["ms"] = time_ms(lambda: fa.flash_attention_fwd(q, k, v, win,
                                                                **kw), 20)
@@ -555,6 +546,7 @@ RMSNORM_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-5}
 
 
 def phase_rmsnorm(gen):
+    from repro_torch.kernels import cost
     from repro_torch.kernels import rmsnorm as rn
     records = {}
     whisper_gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
@@ -572,11 +564,10 @@ def phase_rmsnorm(gen):
         tol = RMSNORM_TOL[dt]
         check(torch.allclose(y.float(), y_p.float(), rtol=tol, atol=tol),
               f"rmsnorm {name}: kernel vs plain {err} (rtol=atol={tol})")
-        nbytes = (2 * x.numel() + w.numel()) * x.element_size()
         rec = {"case": name, "shape": list(shape), "dtype": str(dt),
                "weight_offset": off, "max_abs_err": err, "tol": tol}
-        rec["bound_ms"], rec["bound_by"] = bound_ms(4.0 * x.numel(), nbytes,
-                                                    dt)
+        rec["bound_ms"], rec["bound_by"] = bound_ms(*cost.rmsnorm_cost(
+            x.numel() // shape[-1], shape[-1], x.element_size()), dt)
         rec["ms"] = time_ms(lambda: rn.rmsnorm(x, w, **kw), 50)
         rec["plain_ms"] = time_ms(lambda: rn.rmsnorm_plain(x, w, **kw), 20)
         library = (lambda: F.rms_norm(x, (shape[-1],), w, eps=1e-6)) \
@@ -633,16 +624,6 @@ SSD_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-3}
 SSD_STATE_RTOL = 1e-3
 
 
-def _ssd_flops(bb, s, h, p, n, chunk) -> float:
-    """Operations the chunked algorithm needs: C.B^T and the masked
-    product over the (i, j <= i) pairs, the carried-state term (none in
-    the first chunk, whose state is zero) and the state update."""
-    nc = s // chunk
-    pairs = chunk * (chunk + 1) // 2
-    per_chunk = 2.0 * pairs * (n + p) + 2.0 * chunk * n * p
-    return bb * h * (nc * per_chunk + (nc - 1) * 2.0 * chunk * n * p)
-
-
 def _ssd_workspace_expected(bb, s, h, p, n, chunk, dt, state: bool) -> int:
     """Bytes the bf16 kernels write in their workspace: fp32 S_c of all
     chunks but the last (256-byte aligned), then fp32 exp(L_Q) of those
@@ -655,6 +636,7 @@ def _ssd_workspace_expected(bb, s, h, p, n, chunk, dt, state: bool) -> int:
 
 
 def phase_ssd(gen):
+    from repro_torch.kernels import cost
     from repro_torch.kernels import ssd_scan as sk
     timed = {}
     for name, bb, s, h, p, g, n, chunk, dt in SSD_CASES:
@@ -709,10 +691,8 @@ def phase_ssd(gen):
                "state_rtol": SSD_STATE_RTOL, "launches": launched,
                "workspace_bytes": ws}
         if name in SSD_TIMED:
-            es = x.element_size()
-            nbytes = (2 * x.numel() + bm.numel() + cm.numel()) * es \
-                + (dtv.numel() + a.numel()) * 4
-            flops = _ssd_flops(bb, s, h, p, n, chunk)
+            flops, nbytes = cost.ssd_cost(bb, s, h, p, g, n, chunk,
+                                          x.element_size())
             rec["bound_ms"], rec["bound_by"] = bound_ms(flops, nbytes, dt)
             # with the state: its fp32 (Bb, H, P, N) written once more
             rec["state_bound_ms"], rec["state_bound_by"] = bound_ms(
@@ -776,6 +756,7 @@ GMM_FP32_K_SCALED = 1024   # from this K on, the fp32 tolerance scales with K
 
 
 def phase_gmm(gen):
+    from repro_torch.kernels import cost
     from repro_torch.kernels import moe_gmm as mg
     records = {}
     for name, e, rows, k, n, bt, dt, iters in GMM_CASES:
@@ -818,9 +799,8 @@ def phase_gmm(gen):
                   f"gmm {name}: kernel vs plain {err} (rtol=atol={tol})")
         # bytes: x, the weights of every expert that owns a block, out
         used = int(torch.unique(ids).numel())
-        nbytes = (x.numel() + used * k * n + t * n) * x.element_size()
-        rec["bound_ms"], rec["bound_by"] = bound_ms(2.0 * t * k * n, nbytes,
-                                                    dt)
+        rec["bound_ms"], rec["bound_by"] = bound_ms(
+            *cost.gmm_cost(t, k, n, used, x.element_size()), dt)
         rec["ms"] = time_ms(lambda: mg.moe_gmm(x, w, ids, block_t=bt), iters)
         rec["plain_ms"] = time_ms(lambda: mg.moe_gmm_plain(x, w, ids, bt),
                                   max(1, iters // 5), warmup=1)
@@ -1440,6 +1420,8 @@ def phase_calibrate():
                                            if r["kernel"] == name),
                       "card_peak": peaks[f["kind"]],
                       "m_half": f["m_half"],
+                      "peak_over_best": f["peak"] / max(
+                          r[rate] for r in rows if r["kernel"] == name),
                       # the fit searches half up to 16x the largest x: a
                       # half there means the rate never bent in the grid
                       "m_half_at_edge": f["m_half"] >= 16 * max(
@@ -1556,7 +1538,7 @@ def _grad_case(op, shape, dt, gen):
     """-> (the op as fn(*inputs), its plain version likewise, the
     inputs (all differentiable), the output gradients, the forward's
     operations, the one PyTorch call of the same function or None)."""
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import cost, ops
     from repro_torch.kernels.flash_attention import flash_attention_plain
     from repro_torch.kernels.moe_gmm import moe_gmm_plain
     from repro_torch.kernels.ref import rmsnorm_ref, ssd_chunked_ref
@@ -1591,7 +1573,8 @@ def _grad_case(op, shape, dt, gen):
             y, st = ssd_chunked_ref(*t, chunk=chunk)
             return (y, st) if state else y
         return (lambda *t: ops.ssd(*t, chunk=chunk, return_state=state),
-                plain, ins, douts, _ssd_flops(bb, s, h, p, n, chunk), None)
+                plain, ins, douts, cost.ssd_flops(bb, s, h, p, n, chunk),
+                None)
     if op == "gmm":
         e, rows, k, n, bt = shape
         ids = torch.arange(e, dtype=torch.int32, device="cuda") \
@@ -1609,7 +1592,8 @@ def _grad_case(op, shape, dt, gen):
             lambda q, k, v: flash_attention_plain(q, k, v,
                                                   causal=causal)[0], ins,
             [torch.randn(b, hq, sq, d, device="cuda", generator=gen).to(dt)],
-            4.0 * d * _attn_live_pairs(sq, sk, None, causal) * b * hq,
+            4.0 * d * cost.attn_live_pairs(sq, sk, None, causal) * b
+            * hq,
             # SDPA's causal mask is top-left aligned: the causal cases
             # here have Sq == Sk, where it is the kernel's
             lambda q, k, v: F.scaled_dot_product_attention(
@@ -2807,6 +2791,142 @@ def phase_shard():
 
 
 # ---------------------------------------------------------------------------
+# 12. dryrun: the production dry run over fake tensors
+# ---------------------------------------------------------------------------
+DRYRUN_ARCH, DRYRUN_SHAPE, DRYRUN_MESH = "tinyllama_1_1b", "train_4k", \
+    "single"
+DRYRUN_TIMEOUT_S = 120
+DRYRUN_RTOL = 1e-9
+# the keys of the reference's record (repro/launch/dryrun.py:274-300)
+DRYRUN_KEYS = (
+    "arch", "shape", "mesh", "kind", "n_chips", "seq_len", "global_batch",
+    "hlo_flops_per_device", "hlo_bytes_per_device",
+    "coll_wire_bytes_per_device", "raw_flops_per_device",
+    "raw_bytes_per_device", "raw_wire_bytes_per_device", "depth_points",
+    "coll_result_bytes_per_device", "coll_breakdown", "coll_counts",
+    "mem_argument_bytes", "mem_output_bytes", "mem_temp_bytes",
+    "mem_generated_code_bytes", "model_flops_step", "params",
+    "active_params", "lower_s", "compile_s")
+# what the record on fake CUDA tensors must share with the one on fake
+# CPU tensors: every FLOP, byte and count
+DRYRUN_SAME = (
+    "n_chips", "mesh_shape", "hlo_flops_per_device", "hlo_bytes_per_device",
+    "coll_wire_bytes_per_device", "coll_result_bytes_per_device",
+    "coll_breakdown", "coll_counts", "spec_wire_bytes",
+    "torch_flops_per_device", "kernel_flops_per_device",
+    "kernel_bytes_per_device", "kernel_calls", "launches", "moe_impl",
+    "mem_argument_bytes", "mem_output_bytes", "mem_temp_bytes",
+    "mem_peak_bytes", "model_flops_step", "params", "active_params")
+
+
+class DryRuns:
+    """The dry run's cell on fake CUDA and on fake CPU tensors, two
+    subprocesses started at once (``start``) while the train phase keeps
+    the card busy (they need the host only), collected by ``phase_dryrun``
+    and stopped, whatever happens, by ``stop``."""
+
+    def __init__(self):
+        self.dir = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
+        self.procs, self.t0 = {}, None
+
+    def start(self) -> None:
+        env = dict(os.environ)
+        env["PYTHONPATH"] = os.pathsep.join(
+            [str(ROOT / "src")] + ([env["PYTHONPATH"]]
+                                   if env.get("PYTHONPATH") else []))
+        self.t0 = time.perf_counter()
+        for dev in ("cuda", "cpu"):
+            with open(os.path.join(self.dir, f"{dev}.out"), "w") as out:
+                self.procs[dev] = subprocess.Popen(
+                    [sys.executable, "-m", "repro_torch.launch.dryrun",
+                     "--arch", DRYRUN_ARCH, "--shape", DRYRUN_SHAPE,
+                     "--mesh", DRYRUN_MESH, "--device", dev, "--force",
+                     "--out", os.path.join(self.dir, dev)],
+                    stdout=out, stderr=subprocess.STDOUT, cwd=ROOT, env=env)
+
+    def wait(self) -> dict:
+        """-> {device: (exit code, output)}: each subprocess may run
+        DRYRUN_TIMEOUT_S from its start."""
+        done = {}
+        for dev, p in self.procs.items():
+            left = DRYRUN_TIMEOUT_S - (time.perf_counter() - self.t0)
+            try:
+                p.wait(timeout=max(left, 0.01))
+            except subprocess.TimeoutExpired:
+                raise RuntimeError(f"dryrun --device {dev}: no exit within "
+                                   f"{DRYRUN_TIMEOUT_S} s of its start")
+            out = pathlib.Path(self.dir, f"{dev}.out").read_text()
+            done[dev] = (p.returncode, out)
+        return done
+
+    def stop(self) -> None:
+        for p in self.procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(self.dir, ignore_errors=True)
+
+
+def phase_dryrun(runs: DryRuns):
+    """``launch.dryrun``'s TinyLlama train cell on the fake 256-rank group,
+    over fake CUDA and fake CPU tensors (``runs``, started before the
+    train phase): wire bytes against ``param_specs``, the two records
+    alike, no launch.  Returns the dry runs' launches (all 0)."""
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.launch.dryrun import spec_wire_bytes
+    t_phase = time.perf_counter()
+    recs = {}
+    for dev, (rc, out) in runs.wait().items():
+        tail = "\n".join(out.strip().splitlines()[-5:])
+        check(rc == 0, f"dryrun --device {dev}: exit code {rc}: {tail}")
+        name = f"{DRYRUN_ARCH}__{DRYRUN_SHAPE}__{DRYRUN_MESH}.json"
+        recs[dev] = json.loads(pathlib.Path(runs.dir, dev, name).read_text())
+        log("dryrun", {"device": dev, "record": recs[dev]})
+    # each record counts its own process's launches by kernel module
+    launches = {
+        name: sum(r["launches"].get(m.__name__.rsplit(".", 1)[1], 0)
+                  for r in recs.values())
+        for name, m in _kernel_modules().items()}
+    cfg = get_config(DRYRUN_ARCH)
+    want = spec_wire_bytes(cfg, SHAPES[DRYRUN_SHAPE],
+                           {"data": 16, "model": 16})
+    for dev, rec in recs.items():
+        missing = [k for k in DRYRUN_KEYS if k not in rec]
+        check(not missing and not rec.get("skipped"),
+              f"dryrun {dev}: skipped or missing keys {missing}")
+        check(rec["n_chips"] == 256 and rec["device"] == dev,
+              f"dryrun {dev}: {rec['n_chips']} chips on {rec['device']}")
+        check(not any(rec["launches"].values()),
+              f"dryrun {dev}: kernels launched {rec['launches']}")
+        check(rec["kernel_calls"].get("flash_attention_fwd") == cfg.n_layers,
+              f"dryrun {dev}: flash's fake calls {rec['kernel_calls']}")
+        for kind in ("all-gather", "reduce-scatter"):
+            got = rec["coll_breakdown"].get(kind, 0.0)
+            check(abs(got - want[kind]) <= DRYRUN_RTOL * want[kind],
+                  f"dryrun {dev}: {kind} wire bytes {got!r}, param_specs "
+                  f"gives {want[kind]!r}")
+        check(all(math.isfinite(rec[k]) and rec[k] > 0 for k in (
+            "hlo_flops_per_device", "hlo_bytes_per_device",
+            "mem_argument_bytes", "mem_temp_bytes")),
+              f"dryrun {dev}: positive finite flops, bytes and memory")
+    differ = {k: (recs["cuda"][k], recs["cpu"][k]) for k in DRYRUN_SAME
+              if recs["cuda"][k] != recs["cpu"][k]}
+    check(not differ, f"dryrun: the CUDA and CPU records differ in {differ}")
+    rec = recs["cuda"]
+    log("dryrun", {
+        "card": card_line(), "cell": f"{DRYRUN_ARCH} {DRYRUN_SHAPE} "
+        f"{DRYRUN_MESH}", "spec_wire_bytes": want,
+        "wall_s": {dev: r["wall_s"] for dev, r in recs.items()},
+        "trace_s": {dev: r["compile_s"] for dev, r in recs.items()},
+        "flops_per_device": rec["hlo_flops_per_device"],
+        "wire_bytes_per_device": rec["coll_wire_bytes_per_device"],
+        "peak_bytes_per_device": rec["mem_peak_bytes"],
+        "roofline": rec["roofline"], "launches": launches,
+        "wait_s": time.perf_counter() - t_phase})
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # --ranks: the sharded trainer across the cards of one host, under
 # ``torchrun --nproc-per-node N chip_smoke.py --ranks``
 # ---------------------------------------------------------------------------
@@ -3090,18 +3210,32 @@ def main() -> int:
     by_path["calibrate"] = phase_calibrate()
     t_new = time.perf_counter()
     by_path["grad"], grad_records = phase_grad()
-    for arch, label, *shape in TRAIN_PATHS:
-        by_path[label] = phase_train(arch, *shape)
-    log("done", f"grad and train phases in "
-        f"{time.perf_counter() - t_new:.1f} s")
-    t_new = time.perf_counter()
-    by_path["validate"] = phase_validate()
-    by_path["resume"] = phase_resume()
-    log("done", f"validate and resume phases in "
-        f"{time.perf_counter() - t_new:.1f} s")
-    t_new = time.perf_counter()
-    by_path["shard"] = phase_shard()
-    log("done", f"shard phase in {time.perf_counter() - t_new:.1f} s")
+    dryruns = DryRuns()
+    try:
+        # the dry run needs the host alone: it runs while the train
+        # phase's steps keep the card busy
+        dryruns.start()
+        for arch, label, *shape in TRAIN_PATHS:
+            by_path[label] = phase_train(arch, *shape)
+        log("done", f"grad and train phases in "
+            f"{time.perf_counter() - t_new:.1f} s")
+        t_new = time.perf_counter()
+        by_path["validate"] = phase_validate()
+        by_path["resume"] = phase_resume()
+        log("done", f"validate and resume phases in "
+            f"{time.perf_counter() - t_new:.1f} s")
+        t_new = time.perf_counter()
+        by_path["shard"] = phase_shard()
+        log("done", f"shard phase in {time.perf_counter() - t_new:.1f} s")
+        t_new = time.perf_counter()
+        try:
+            by_path["dryrun"] = phase_dryrun(dryruns)
+        except Exception as e:
+            print(f"[fail] dryrun: {e}", flush=True)
+            raise
+        log("done", f"dryrun phase in {time.perf_counter() - t_new:.1f} s")
+    finally:
+        dryruns.stop()
 
     kernels = []
     for name, rec in records.items():

@@ -9,11 +9,20 @@ whose backward is the reference's, the same code on both devices:
 flash's from the saved o and lse; rmsnorm's and the SSD's recompute
 through their plain versions and take its autograd; the gmm's dx is the
 gmm itself (the kernel on the card) over the transposed experts.
+
+A fake tensor (``FakeTensorMode``: the dry run, ``launch/dryrun.py``)
+takes a branch of its own before either route, whatever its device: it
+returns empty outputs of the kernel's shapes and dtypes and adds the
+kernel's nominal operations and bytes (``kernels/cost.py``) to the
+counts ``launch/hlo.py::counting_kernels`` made active.  A real tensor
+never reaches it.
 """
 from __future__ import annotations
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
+from repro_torch.kernels import cost
 from repro_torch.kernels.flash_attention import \
     flash_attention_bwd_plain as _fa_bwd
 from repro_torch.kernels.flash_attention import \
@@ -40,7 +49,28 @@ def _is_cuda(*tensors) -> bool:
                      f"{sorted(kinds)}")
 
 
+def _is_fake(*tensors) -> bool:
+    return any(isinstance(t, FakeTensor) for t in tensors)
+
+
+def _counts():
+    """The dry run's active kernel counts, or None."""
+    from repro_torch.launch.hlo import active_kernel_counts
+    return active_kernel_counts()
+
+
+def _count(counts, kernel: str, work: tuple) -> None:
+    if counts is not None:
+        counts.add(kernel, *work)
+
+
 def _fa_forward(q, k, v, window, causal, softcap, scale, block):
+    if _is_fake(q, k, v):
+        (b, hq, sq, d), (hkv, sk) = q.shape, k.shape[1:3]
+        _count(_counts(), "flash_attention_fwd", cost.flash_fwd_cost(
+            b, hq, hkv, sq, sk, d, window, causal, q.element_size()))
+        return torch.empty_like(q), q.new_empty((b, hq, sq),
+                                                dtype=torch.float32)
     if _is_cuda(q, k, v):
         return _fa_cuda(q, k, v, window, causal=causal, softcap=softcap,
                         scale=scale)
@@ -139,6 +169,11 @@ class _RMSNorm(torch.autograd.Function):
     def forward(ctx, x, w, eps, weight_offset):
         ctx.save_for_backward(x, w)
         ctx.cfg = (eps, weight_offset)
+        if _is_fake(x, w):
+            d = x.shape[-1]
+            _count(_counts(), "rmsnorm", cost.rmsnorm_cost(
+                x.numel() // d if d else 0, d, x.element_size()))
+            return torch.empty_like(x)
         if _is_cuda(x, w):
             return _rmsnorm_cuda(x, w, eps=eps, weight_offset=weight_offset)
         return _rmsnorm_plain(x, w, eps=eps, weight_offset=weight_offset)
@@ -169,6 +204,14 @@ class _SSD(torch.autograd.Function):
         ctx.save_for_backward(x, dt, A, B, C)
         ctx.cfg = (chunk, return_state)
         ctx.set_materialize_grads(False)
+        if _is_fake(x, dt, A, B, C):
+            (bb, s, h, p), (g, n) = x.shape, B.shape[2:]
+            _count(_counts(), "ssd_scan", cost.ssd_cost(
+                bb, s, h, p, g, n, chunk, x.element_size(),
+                dt.element_size(), return_state))
+            y = torch.empty_like(x)
+            return (y, x.new_empty((bb, h, p, n), dtype=torch.float32)) \
+                if return_state else y
         if _is_cuda(x, dt, A, B, C):
             x, dt, A, B, C = (t.contiguous() for t in (x, dt, A, B, C))
             return _ssd_cuda(x, dt, A, B, C, chunk=chunk,
@@ -198,7 +241,14 @@ def ssd(x, dt, A, B, C, *, chunk=128, return_state=False):
     return _SSD.apply(x, dt, A, B, C, chunk, return_state)
 
 
-def _gmm_forward(x, w, block_group_ids, block_t):
+def _gmm_forward(x, w, block_group_ids, block_t, counts=None):
+    """``counts``: where a fake call adds its work (the active counts
+    when None)."""
+    if _is_fake(x, w, block_group_ids):
+        (t, k), (e, _, n) = x.shape, w.shape
+        _count(counts or _counts(), "moe_gmm",
+               cost.gmm_cost(t, k, n, e, x.element_size()))
+        return x.new_empty((t, n))
     if _is_cuda(x, w, block_group_ids):
         return _gmm_cuda(x, w, block_group_ids, block_t=block_t)
     return _gmm_plain(x, w, block_group_ids, block_t)
@@ -210,12 +260,15 @@ class _MoEGMM(torch.autograd.Function):
     the gmm of dy over the experts' transposed weights (the kernel on
     the card: K and N are both multiples of 8), dw each expert's sum of
     x_block^T dy_block over its blocks, in float32; a block whose id is
-    outside [0, E) adds to no expert."""
+    outside [0, E) adds to no expert.  Under fake tensors dw is an empty
+    tensor of its shape and counts 2·T·K·N (its blocks are data)."""
 
     @staticmethod
     def forward(ctx, x, w, block_group_ids, block_t):
         ctx.save_for_backward(x, w, block_group_ids)
         ctx.block_t = block_t
+        # the backward may run on another thread: it counts here
+        ctx.counts = _counts() if _is_fake(x, w, block_group_ids) else None
         return _gmm_forward(x, w, block_group_ids, block_t)
 
     @staticmethod
@@ -225,8 +278,14 @@ class _MoEGMM(torch.autograd.Function):
         dy = dy.contiguous()
         dx = dw = None
         if ctx.needs_input_grad[0]:
-            dx = _gmm_forward(dy, w.transpose(1, 2).contiguous(), ids, bt)
-        if ctx.needs_input_grad[1]:
+            dx = _gmm_forward(dy, w.transpose(1, 2).contiguous(), ids, bt,
+                              ctx.counts)
+        if ctx.needs_input_grad[1] and _is_fake(x, dy, w):
+            (t, k), (e_n, _, n) = x.shape, w.shape
+            _count(ctx.counts, "moe_gmm_dw",
+                   cost.gmm_cost(t, k, n, e_n, x.element_size()))
+            dw = torch.empty_like(w)
+        elif ctx.needs_input_grad[1]:
             (e_n, k, n), acc = w.shape, wide(w).dtype
             dw = torch.zeros((e_n, k, n), dtype=acc, device=w.device)
             xb, dyb = x.view(-1, bt, k), dy.view(-1, bt, n)

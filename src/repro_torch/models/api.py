@@ -3,6 +3,8 @@
 encdec).
 
   init(seed, ex) -> model (an nn.Module holding the parameters)
+  skeleton(dtype) -> the family's module on the meta device, its
+      parameters unset (the dry run makes them fake on its device)
   prefill(model, batch, ex, cache=None) -> (logits, cache)
   decode_step(model, cache, tokens, pos, ex) -> (logits, cache)
   init_cache(batch, seq_len, ex) -> cache
@@ -21,14 +23,17 @@ from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.models import encdec, hybrid, ssm_lm, transformer
 from repro_torch.models.common import check_device
 
-# family -> (seeded init, cache allocator)
+# family -> (seeded init, cache allocator, module class)
 _FAMILIES = {
-    "dense": (transformer.lm_init, transformer.init_cache),
-    "moe": (transformer.lm_init, transformer.init_cache),
-    "hybrid": (hybrid.hybrid_init, hybrid.init_cache),
-    "ssm": (ssm_lm.ssm_lm_init, ssm_lm.init_cache),
-    "vlm": (transformer.lm_init, transformer.init_cache),
-    "encdec": (encdec.encdec_init, encdec.init_cache),
+    "dense": (transformer.lm_init, transformer.init_cache,
+              transformer.Transformer),
+    "moe": (transformer.lm_init, transformer.init_cache,
+            transformer.Transformer),
+    "hybrid": (hybrid.hybrid_init, hybrid.init_cache, hybrid.Hybrid),
+    "ssm": (ssm_lm.ssm_lm_init, ssm_lm.init_cache, ssm_lm.SSMLM),
+    "vlm": (transformer.lm_init, transformer.init_cache,
+            transformer.Transformer),
+    "encdec": (encdec.encdec_init, encdec.init_cache, encdec.EncDec),
 }
 PORTED_FAMILIES = tuple(_FAMILIES)
 # family -> loss(model, batch, cfg, ex)
@@ -41,6 +46,7 @@ _LOSSES = {"dense": transformer.lm_loss, "moe": transformer.lm_loss,
 class ModelFns:
     cfg: ModelConfig
     init: Callable
+    skeleton: Callable
     prefill: Callable
     decode_step: Callable
     init_cache: Callable
@@ -53,10 +59,13 @@ def build_model(cfg: ModelConfig) -> ModelFns:
         raise NotImplementedError(
             f"model family {cfg.family!r} ({cfg.name}) is not ported yet; "
             f"ported: {PORTED_FAMILIES}")
-    family_init, family_cache = _FAMILIES[cfg.family]
+    family_init, family_cache, family_module = _FAMILIES[cfg.family]
 
     def init(seed, ex):
         return family_init(cfg, ex, seed)
+
+    def skeleton(dtype):
+        return family_module(cfg, device="meta", dtype=dtype)
 
     def prefill(model, batch, ex, cache=None):
         # a vlm's prefix embeddings, an encdec's encoder frames
@@ -107,6 +116,6 @@ def build_model(cfg: ModelConfig) -> ModelFns:
                 batch["loss_mask"] = mask.to(device)
         return batch
 
-    return ModelFns(cfg=cfg, init=init, prefill=prefill,
+    return ModelFns(cfg=cfg, init=init, skeleton=skeleton, prefill=prefill,
                     decode_step=decode_step, init_cache=init_cache,
                     make_batch=make_batch, loss=loss)

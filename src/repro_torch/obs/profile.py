@@ -70,7 +70,7 @@ _GMM_BLOCK_T = 16
 # rate is flat from the first point, and its grid is the reference's.
 _CARD_EXTRA = {
     "flash_attention_fwd": [4096, 8192, 16384],
-    "flash_attention_bwd": [2048, 4096, 8192, 16384],
+    "flash_attention_bwd": [2048, 4096, 8192, 16384, 32768, 65536],
     "moe_gmm": [4096, 8192, 16384, 32768],
     "ssd": [],
     "rmsnorm": [131072],
@@ -84,9 +84,16 @@ _CARD_EXTRA_MOE_N = [1024, 2048, 4096]
 # to run fast or slow bends the fitted curve: one whole run fitted a peak
 # of 8.98e13 FLOP/s, over the card's float32 peak, from such a top.  Its
 # top ``_CARD_TOP_POINTS`` points are therefore timed ``_CARD_REPEATS``
-# times each (best-of-``reps`` each time) and fitted by the median.
+# times each (best-of-``reps`` each time) and fitted by the median.  Its
+# grid goes on to m 65536: a grid that ended at m 16384 ended while the
+# rate still rose (2.19e12, 4.72e12, 5.75e12 FLOP/s at m 4096, 8192,
+# 16384) and its fits put the peak 1.65-2.1x past the best reading; one
+# that ended at 32768 (5.98e12) put it 1.27-1.33x past.  A call at m
+# 32768 or more takes 0.55 s or more and its timings agree within 0.1%,
+# so there each of the three timings is one call (``_CARD_ONE_REP``).
 _CARD_REPEATS = {"flash_attention_bwd": 3}
 _CARD_TOP_POINTS = 3
+_CARD_ONE_REP = {"flash_attention_bwd": 32768}
 
 
 def _grids(quick: bool, device="cpu") -> Dict[str, List[int]]:
@@ -114,6 +121,12 @@ def _repeats(name: str, x: int, quick: bool, device) -> int:
     """How many times a grid point is timed (its row holds the median)."""
     n = _CARD_REPEATS.get(name, 1) if _cuda(device) else 1
     return n if x in _grids(quick, device)[name][-_CARD_TOP_POINTS:] else 1
+
+
+def _reps(name: str, x: int, reps: int, device) -> int:
+    """Calls a timing of this grid point takes the best of."""
+    big = _CARD_ONE_REP.get(name)
+    return 1 if _cuda(device) and big is not None and x >= big else reps
 
 
 def _time_point(fn, args, reps: int, repeats: int):
@@ -350,7 +363,8 @@ def profile_kernels(kernels: Optional[Sequence[str]] = None, *,
     the calls' time on its stream, from a cold L2.  On the card the top
     points of a ``_CARD_REPEATS`` kernel are timed that many times and
     their row holds the median (``time_s``) beside every timing
-    (``repeats``, ``times_s``).
+    (``repeats``, ``times_s``); from a ``_CARD_ONE_REP`` point on, a
+    timing is one call (the row's ``reps``).
     """
     from repro_torch.models.common import check_device
     device = check_device(device)
@@ -369,15 +383,16 @@ def profile_kernels(kernels: Optional[Sequence[str]] = None, *,
                 before = _launch_counts(kernels)
                 repeats = _repeats(name, x, quick, device) \
                     if axis == "m" else 1
+                point_reps = _reps(name, x, reps, device)
                 with span("profile.measure", kernel=name, axis=axis,
-                          x=x, reps=reps):
-                    t, times = _time_point(fn, args, reps, repeats)
+                          x=x, reps=point_reps):
+                    t, times = _time_point(fn, args, point_reps, repeats)
                 impl = _impl(name, kernels, before)
                 m = {"kernel": name, "kind": kind, "axis": axis,
                      "x": int(x), "shape": shape, "flops": flops,
                      "bytes": bytes_, "time_s": t,
                      "flops_per_s": flops / t, "bytes_per_s": bytes_ / t,
-                     "reps": reps, "impl": impl, "dtype": "float32"}
+                     "reps": point_reps, "impl": impl, "dtype": "float32"}
                 if repeats > 1:
                     m.update(repeats=repeats, times_s=times)
                 metrics.inc("profile.measurements")

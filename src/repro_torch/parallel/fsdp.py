@@ -17,7 +17,10 @@ alike, agree.
 Inside ``gathered_forward`` the autograd graph does not keep a gathered
 tensor: each is saved as its parameter and gathered again when the
 backward needs it, so a parameter's full copy lives from its read to
-the end of the op that read it.
+the end of the op that read it.  A gathered tensor is known by its
+storage (``StorageWeakRef``), not by its data pointer, which is 0 for
+every fake tensor (``launch/dryrun.py`` traces this scope over fake
+tensors).
 """
 from __future__ import annotations
 
@@ -27,6 +30,7 @@ from contextvars import ContextVar
 from typing import Dict, Iterable, Optional
 
 import torch
+from torch.multiprocessing.reductions import StorageWeakRef
 
 from repro_torch.parallel.sharding import placements
 
@@ -51,8 +55,9 @@ def _gather(p, grad: bool = True) -> torch.Tensor:
     return full
 
 
-# inside ``gathered_forward``: data_ptr of a gathered tensor's storage ->
-# (weakref to it, its parameter)
+# inside ``gathered_forward``: a gathered tensor's storage (a weak
+# reference, which also keeps its address from naming a later storage)
+# -> (weakref to the tensor, its parameter)
 _SCOPE: ContextVar[Optional[dict]] = ContextVar("gathered_forward",
                                                default=None)
 
@@ -67,9 +72,9 @@ def _read(self, name):
         if live is not None:
             with torch.no_grad():
                 local = params[name].to_local()
-            ptr = full.untyped_storage().data_ptr()
-            if ptr != local.untyped_storage().data_ptr():  # a copy
-                live[ptr] = (weakref.ref(full), params[name])
+            key = StorageWeakRef(full.untyped_storage())
+            if key != StorageWeakRef(local.untyped_storage()):  # a copy
+                live[key] = (weakref.ref(full), params[name])
         return full
     return torch.nn.Module.__getattr__(self, name)
 
@@ -131,22 +136,21 @@ class _Saved:
 def gathered_forward():
     """The scope of a sharded forward and backward: the graph saves each
     gathered parameter as the parameter, gathered again on use."""
-    live: Dict[int, tuple] = {}
+    live: Dict[StorageWeakRef, tuple] = {}
     # the backward's gathers, alive while the graph holds them
     regathered = weakref.WeakValueDictionary()
 
     def pack(t):
         try:
-            ptr = t.untyped_storage().data_ptr()
+            key = StorageWeakRef(t.untyped_storage())
         except (RuntimeError, NotImplementedError):
             return t
-        entry = live.get(ptr)
+        entry = live.get(key)
         if entry is None:
             return t
         full = entry[0]()
-        if full is None or full.untyped_storage().data_ptr() != ptr \
-                or full.dtype != t.dtype:
-            live.pop(ptr, None)         # stale: the storage was freed
+        if full is None or full.dtype != t.dtype:
+            live.pop(key, None)         # stale: the gathered tensor is gone
             return t
         return _Saved(entry[1], t)
 

@@ -287,6 +287,30 @@ def test_card_flash_bwd_top_points_fit_their_median(monkeypatch):
     assert calls == [(3, 1), (3, 0), (3, 0)]
 
 
+def test_card_flash_bwd_grid_reaches_m_65536():
+    """ROADMAP C15: the card's flash backward grid goes on to m 65536, so
+    its three median-fitted top points are 16384, 32768 and 65536, the
+    last two timed one call a timing; quick drops 65536; the CPU's and
+    the reference's grids, and every other point's reps, are as they
+    were."""
+    from repro.obs import profile as ref_prof
+    from repro_torch.obs import profile as prof
+    name = "flash_attention_bwd"
+    g = prof._grids(False, "cuda")[name]
+    assert g[-4:] == [8192, 16384, 32768, 65536]
+    assert [x for x in g if prof._repeats(name, x, False, "cuda") == 3] == \
+        [16384, 32768, 65536]
+    assert [prof._reps(name, x, 3, "cuda") for x in g[-4:]] == [3, 3, 1, 1]
+    assert {prof._reps(name, x, 3, "cpu") for x in g} == {3}
+    for other in prof.PROFILE_KERNELS:
+        if other != name:
+            assert {prof._reps(other, x, 3, "cuda")
+                    for x in prof._grids(False, "cuda")[other]} == {3}
+    assert prof._grids(True, "cuda")[name] == g[:-1]
+    assert prof._grids(False, "cpu")[name] == \
+        ref_prof._grids(False)[name] == [128, 256, 512, 1024]
+
+
 def test_fit_of_median_rows_stays_near_the_rows_level():
     """Rows like the card's flash backward (a rate ``level * x / (x +
     8000)``, PRs 26-28's m_half range, 8% noise a timing): with the top
