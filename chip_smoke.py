@@ -84,12 +84,21 @@ Phases, in order; any failure raises and exits non-zero:
    gmm's dx on the kernel), LLaVA-NeXT-34B at 2 of 60 (the loss masked
    over the 576 prefix positions), Zamba2-7B at 15 of 81 (the shared
    block applied twice) and Whisper-medium at 24 + 24 (8 x 384 decoder
-   tokens over 1500 frames).  Each: 3 warm-up and 10 timed steps (step
-   ms, tokens/s, model FLOP/s, peak memory beside the reckoned 18 B a
-   parameter of state), the launches of one step (the forward's, and the
-   gmm's dx in the backward), one profiled step (forward, backward by
-   node, optimiser, kernel classes, idle share), 20 steps on one fixed
-   batch whose loss must fall, and a cut depth at full width, batch 2
+   tokens over 1500 frames).  Each: 3 warm-up and 10 timed steps (5 for
+   Mamba2 and Zamba2; step ms, tokens/s, model FLOP/s, peak memory
+   beside the reckoned 18 B a parameter of state), the launches of one
+   step (the forward's, and the gmm's dx in the backward), one profiled
+   step (forward, backward by node, optimiser, kernel classes, idle
+   share), remat (``ExecConfig.remat``): from that state and one batch a
+   ``make_grad_step`` under "none" and one under "full" (TinyLlama also
+   "dots", its gradients element by element against "none"'s), the loss
+   and every gradient norm within 1e-3 (bit for bit logged), the bytes
+   held at the forward's end below "none"'s and each peak not above it
+   (TinyLlama's peaks none > dots > full), "full"'s launches counted
+   (each wrapped layer's forward kernels again), TinyLlama's 3 steps
+   timed under "full"; 10
+   steps on one fixed batch whose loss must fall, and a cut depth at full
+   width, batch 2
    (TinyLlama, Mamba2 2 layers x 256; Mixtral 1 x 256; LLaVA 1 x 640;
    Zamba2 7 x 256; Whisper 2 + 2 x 256 over 1500 frames): one step on
    the card against the CPU in float32 (loss, every gradient, m, v; a
@@ -126,23 +135,33 @@ Phases, in order; any failure raises and exits non-zero:
    8 x 1024, bf16 compute, 3 steps through it and 3 through
    ``make_train_step`` from the same init and batches (losses and every
    parameter bit for bit, else the largest difference; the sharded
-   steps' launches counted); Mixtral-8x7B at full width, 1 of 32 layers,
+   steps' launches counted), then 2 steps each under remat "full", bit
+   for bit; Mixtral-8x7B at full width, 1 of 32 layers,
    ``moe_impl="a2a"``: a warm-up step and a counted one (the gmm's 6
-   launches); then its MoE layer at 8 x 1024 tokens, where ``cap_exp``
+   launches), the first step again under remat "full" (its loss and
+   gradient norms within 1e-3 of the plain one's; the gmm's forward and
+   the all-to-alls run again in the backward); then its MoE layer at 8 x
+   1024 tokens, where ``cap_exp``
    equals ``capacity()`` (2560 rows an expert, block_t 128 on the wgmma
    kernel): the a2a against the dense ``moe_apply`` (y, aux, every
    gradient) and the a2a's gmm against its plain version.  Prints step
    ms, peak memory, launches and the world size.
-12. dryrun - ``python -m repro_torch.launch.dryrun`` in two subprocesses
-   (120 s each from their start), started together before the train
-   phase, whose steps keep the card busy, and read after ``shard``:
-   TinyLlama-1.1B ``train_4k`` on the single-pod (16, 16) mesh of a
-   256-rank fake group, over fake CUDA tensors and over fake CPU
-   tensors.  The all-gather and reduce-scatter wire bytes must equal the
-   sums ``param_specs`` gives (to 1e-9 relative), the two records must
-   agree in every FLOP, byte and count, and neither may launch a kernel.
-   Prints each cell's record and wall time.  A failure prints
-   ``[fail] dryrun: <message>``.
+12. dryrun - ``python -m repro_torch.launch.dryrun`` in three
+   subprocesses, started together before the train phase, whose steps
+   keep the card busy, and read after ``shard``, each cell under the
+   dry run's remat "full": TinyLlama-1.1B ``train_4k`` on the single-pod
+   (16, 16) mesh of a 256-rank fake group, over fake CUDA tensors and
+   over fake CPU tensors (120 s each from their start): the all-gather
+   and reduce-scatter wire bytes must equal the sums ``param_specs``
+   gives (to 1e-9 relative), 44 flash and 89 rmsnorm fake calls, FLOPs
+   above and peak below the cell without remat, the two records must
+   agree in every FLOP, byte and count; Qwen3-MoE-235B-A22B ``train_4k``
+   on the two-pod (2, 16, 16) mesh of a 512-rank group over fake CUDA
+   tensors (600 s): its reduce-scatter the spec sum, its all-reduce
+   within twice the single pod's.  None may launch a kernel.  Prints
+   each cell's record and wall time.
+
+A failing check prints ``[fail] <phase>: <message>`` and exits 1.
 
 The last lines are the card's name and power limit (nvidia-smi), one JSON
 line ``{"kernels": [...]}`` and ``{"ok": true, "device": {...}}``.
@@ -1664,31 +1683,45 @@ def phase_grad():
 # ---------------------------------------------------------------------------
 # arch, label, depth trained (None: the config's), sequence length (encdec:
 # the decoder's, over the config's 1500 encoder frames), depth of the
-# card-vs-CPU check, its sequence length.  A training state costs ~18 B a
-# parameter (float32 weights, gradients, m and v, and the bf16 copy of each
-# call), so the configs past one 80 GB card train at a cut depth:
+# card-vs-CPU check, its sequence length, timed steps.  A training state
+# costs ~18 B a parameter (float32 weights, gradients, m and v, and the
+# bf16 copy of each call), so the configs past one 80 GB card train at a
+# cut depth.  Mamba2's and Zamba2's steps are the longest (1.5-2.2 s and
+# 0.9 s): they time 5 steps, the others 10.
 TRAIN_PATHS = (
-    ("tinyllama-1.1b", "train_tinyllama", None, 1024, 2, 256),
-    ("mamba2-780m", "train_mamba2", None, 1024, 2, 256),
+    ("tinyllama-1.1b", "train_tinyllama", None, 1024, 2, 256, 10),
+    ("mamba2-780m", "train_mamba2", None, 1024, 2, 256, 5),
     # 2 of 32 layers, 3.165 B params (57.0 GB at 18 B); the check's one
     # layer is 1.713 B, ~6.9 GB a float32 copy on the host
-    ("mixtral-8x7b", "train_mixtral", 2, 1024, 1, 256),
+    ("mixtral-8x7b", "train_mixtral", 2, 1024, 1, 256, 10),
     # 2 of 60 layers, 2.033 B params (36.6 GB); the check's prompt holds
     # the 576 prefix positions, which the loss mask leaves out
-    ("llava-next-34b", "train_llava", 2, 1024, 1, 640),
+    ("llava-next-34b", "train_llava", 2, 1024, 1, 640, 10),
     # 15 of 81 layers: 2 periods of 6 and the shared block, then 3
     # leftover layers, as 81 = 13 x 6 + 3; the check runs one period and
     # one leftover layer, as its serve check
-    ("zamba2-7b", "train_zamba2", 15, 1024, 7, 256),
+    ("zamba2-7b", "train_zamba2", 15, 1024, 7, 256, 5),
     # all 24 + 24 layers over 1500 frames, a 384-token decoder; the check
     # runs 2 + 2 layers
-    ("whisper-medium", "train_whisper", None, WHISPER_PROMPT, 2, 256),
+    ("whisper-medium", "train_whisper", None, WHISPER_PROMPT, 2, 256, 10),
 )
 # every train batch comes from data.DataPipeline, the generator
 # launch.train trains on (a vlm's loss mask in the compute dtype)
 TRAIN_BATCH = SERVE_BATCH
 TRAIN_STATE_BYTES_PER_PARAM = 18
-TRAIN_WARMUP, TRAIN_TIMED = 3, 10
+TRAIN_WARMUP = 3
+# remat (ExecConfig.remat): from the timed steps' state and one batch, a
+# make_grad_step under "none" and one under "full" (TinyLlama also
+# "dots"); the loss and every parameter's gradient norm within this of
+# "none"'s (the recompute repeats the same kernels on the same inputs:
+# bit for bit is expected and logged); "dots"' gradients element by
+# element, bit for bit or within BF16_SLACK relative L2 (the bf16 gate
+# without its 2 e_plain term)
+REMAT_RTOL = 1e-3
+REMAT_DOTS_ARCH = "tinyllama-1.1b"
+# TinyLlama's train steps timed under "full" (after one warm-up), beside
+# the phase's "none" steps
+REMAT_TIMED = 3
 # the learning check: tests/test_substrate.py's schedule (warm-up 5 of
 # 120) at base lr 5e-4 where it has 5e-3, one fixed batch; the mean of
 # the last 3 losses must sit this far under the first 3's (the
@@ -1697,8 +1730,10 @@ TRAIN_WARMUP, TRAIN_TIMED = 3, 10
 # weights' scale is d_model^-0.5: at 5e-3 the loss of TinyLlama, Mamba2
 # and Whisper swung back above its start within 20 steps on an H100, and
 # that of LLaVA (2 layers, d_model 7168) and Zamba2 (15) climbed from ~11
-# to 40 and 22; at 5e-4 LLaVA, Mixtral and Zamba2 fell below 0.06.
-LEARN_STEPS, LEARN_LR, LEARN_MARGIN = 20, dict(base_lr=5e-4, warmup=5,
+# to 40 and 22; at 5e-4 LLaVA, Mixtral and Zamba2 fell below 0.06.  10
+# steps: after 10 the means sat 2.47-10.25 under the first 3's on every
+# path, and the script's time goes to the remat checks.
+LEARN_STEPS, LEARN_LR, LEARN_MARGIN = 10, dict(base_lr=5e-4, warmup=5,
                                                total=120), 0.3
 
 # card vs CPU: the path's check depth at full width, batch 2, float32
@@ -1761,6 +1796,35 @@ def expected_train_launches(cfg, seq: int) -> dict:
     if cfg.moe is not None:
         # w1, w3 and w2 of every layer forward, and each one's dx backward
         counts["moe_gmm"] = 2 * 3 * cfg.n_layers
+    return counts
+
+
+def expected_remat_launches(cfg, seq: int) -> dict:
+    """Kernel launches of one train step under remat "full" (or "dots"):
+    ``expected_train_launches``' and, again in the backward, the forward
+    kernels of every layer body that remat wraps: each layer of a dense,
+    moe, vlm or ssm model and of Whisper's encoder and decoder, and of
+    Zamba2 its whole periods only (the leftover layers run without
+    remat).  The final norms are outside every body, and the gmm's dx is
+    the backward's own."""
+    counts = expected_train_launches(cfg, seq)
+    if cfg.family == "encdec":
+        counts["flash_attention_fwd"] += cfg.encoder_layers + 2 * cfg.n_layers
+        counts["rmsnorm"] += 2 * cfg.encoder_layers + 3 * cfg.n_layers
+        return counts
+    if cfg.family in ("ssm", "hybrid"):
+        n_apps = cfg.n_layers // cfg.hybrid_period \
+            if cfg.family == "hybrid" else 0
+        wrapped = n_apps * cfg.hybrid_period if n_apps else cfg.n_layers
+        counts["rmsnorm"] += 2 * wrapped + 2 * n_apps
+        counts["ssd_scan"] += (3 if seq > cfg.ssm.chunk else 1) * wrapped
+        counts["flash_attention_fwd"] += n_apps
+        return counts
+    norms = 2 + (2 if cfg.attn.qk_norm else 0)
+    counts["flash_attention_fwd"] += cfg.n_layers
+    counts["rmsnorm"] += norms * cfg.n_layers
+    if cfg.moe is not None:
+        counts["moe_gmm"] += 3 * cfg.n_layers
     return counts
 
 
@@ -2066,12 +2130,146 @@ def _train_check(arch: str, depth: int, seq: int):
           f"tolerance: {bad}")
 
 
+def _remat_grads(cfg, ex, model, batch, remat: str, mods, keep=None):
+    """One ``make_grad_step`` under ``remat`` from ``model``'s weights ->
+    (loss, each parameter's gradient norm and the int64 sum of its bits
+    (on the host), the peak bytes allocated, the bytes allocated when the
+    forward saved its last tensor for the backward (the activations it
+    holds, read by a saved-tensors hook that changes nothing), the
+    step's launches (every count set to 0 just before, read just after),
+    and the gradients themselves on ``keep`` ("cpu" or "cuda"), else
+    None: they are dropped)."""
+    from repro_torch.launch.steps import make_grad_step
+    grad_step = make_grad_step(cfg, dataclasses.replace(ex, remat=remat))
+    params = list(model.parameters())
+    for p in params:
+        p.grad = None
+    # the forward ends where the backward unpacks its first tensor (the
+    # kernels' backwards save tensors of their own after that)
+    held, forward = [0], [True]
+
+    def pack(t):
+        if forward[0]:
+            held[0] = max(held[0], torch.cuda.memory_allocated())
+        return t
+
+    def unpack(t):
+        forward[0] = False
+        return t
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for mod in mods.values():
+        mod.launches = 0
+    with torch.autograd.graph.saved_tensors_hooks(pack, unpack):
+        loss, _ = grad_step(model, batch)
+    torch.cuda.synchronize()
+    launches = {n: mod.launches for n, mod in mods.items()}
+    peak = torch.cuda.max_memory_allocated()
+    with torch.no_grad():
+        norms = torch.stack([p.grad.float().norm() for p in params]).cpu()
+        bits = torch.stack([p.grad.view(torch.int32).sum(dtype=torch.int64)
+                            for p in params]).cpu()
+    grads = [p.grad.to(keep) for p in params] if keep else None
+    for p in params:
+        p.grad = None
+    return loss.item(), norms, bits, peak, held[0], launches, grads
+
+
+def _remat_check(arch, cfg, ex, state, batch, seq, mods, step_ms,
+                 batches):
+    """remat on the timed steps' state: one grad step under "none", one
+    under "full" (and for TinyLlama "dots"): the loss and every gradient
+    norm within REMAT_RTOL (bit for bit logged), the bytes held at the
+    forward's end below "none"'s and each peak not above it (TinyLlama:
+    peaks none > dots > full; where a few wide layers' float32 gradients
+    set the peak, in the first layer's backward, remat cannot lower it:
+    Mixtral at 2 layers peaks alike), "full"'s launches those of
+    ``expected_remat_launches``; TinyLlama's "dots" gradients element by
+    element against "none"'s, then REMAT_TIMED train steps under "full"
+    after a warm-up.  Only the norms are kept between the runs (and
+    TinyLlama's "none" gradients), so that Mixtral's state fits.  -> the
+    "full" step's launches."""
+    from repro_torch.launch.steps import make_train_step
+    t0 = time.perf_counter()
+    dots = arch == REMAT_DOTS_ARCH
+    # TinyLlama's "none" gradients wait on the host, so that every run
+    # starts from the same bytes on the card
+    keep = {"none": "cpu", "dots": "cuda"} if dots else {}
+    runs = {remat: _remat_grads(cfg, ex, state.model, batch, remat, mods,
+                                keep=keep.get(remat))
+            for remat in ("none", "full") + (("dots",) if dots else ())}
+    loss0, norms0, bits0, peak0, held0, launches0, grads0 = runs["none"]
+    rec = {"model": cfg.name, "card": card_line(), "layers": cfg.n_layers,
+           "batch": TRAIN_BATCH, "seq": seq, "none": {
+               "loss": loss0, "peak_bytes": peak0,
+               "forward_end_bytes": held0, "launches": launches0}}
+    for remat in ("full", "dots"):
+        if remat not in runs:
+            continue
+        loss, norms, bits, peak, held, launches, _ = runs[remat]
+        rel = ((norms - norms0).abs() / norms0.clamp_min(1e-30)).max().item()
+        rec[remat] = {
+            "loss": loss, "loss_rel_gap": abs(loss - loss0) / abs(loss0),
+            "max_grad_norm_rel_gap": rel,
+            "bit_for_bit": loss == loss0 and torch.equal(norms, norms0)
+            and torch.equal(bits, bits0),
+            "peak_bytes": peak, "peak_over_none": peak / peak0,
+            "forward_end_bytes": held,
+            "forward_end_over_none": held / held0, "launches": launches}
+        check(abs(loss - loss0) <= REMAT_RTOL * abs(loss0) and
+              rel <= REMAT_RTOL, f"train {cfg.name}: remat {remat} vs none: "
+              f"loss {loss} vs {loss0}, gradient norms {rel} apart (tol "
+              f"{REMAT_RTOL})")
+        check(held < held0 and peak <= peak0, f"train {cfg.name}: remat "
+              f"{remat} holds {held} B at the forward's end (none {held0}) "
+              f"and peaks at {peak} (none {peak0})")
+    expected = expected_remat_launches(cfg, seq)
+    check(rec["full"]["launches"] == expected, f"train {cfg.name}: remat "
+          f"full's launches {rec['full']['launches']}, expected {expected}")
+    if dots:
+        grads = runs["dots"][6]
+        errs, bitwise = [], True
+        for g, g0 in zip(grads, grads0):
+            g0 = g0.cuda()
+            errs.append(rel_l2(g, g0))
+            bitwise = bitwise and torch.equal(g, g0)
+        del grads, grads0, runs
+        rec["dots"]["elementwise"] = {"bit_for_bit": bitwise,
+                                      "max_rel_l2": max(errs),
+                                      "tol": BF16_SLACK}
+        check(bitwise or max(errs) <= BF16_SLACK, f"train {cfg.name}: remat "
+              f"dots' gradients vs none's: {max(errs)} (tol {BF16_SLACK})")
+        check(rec["none"]["peak_bytes"] > rec["dots"]["peak_bytes"]
+              > rec["full"]["peak_bytes"], f"train {cfg.name}: peaks none "
+              f"> dots > full: {rec['none']['peak_bytes']}, "
+              f"{rec['dots']['peak_bytes']}, {rec['full']['peak_bytes']}")
+        # train steps under "full" against the phase's "none" steps
+        step = make_train_step(cfg, dataclasses.replace(ex, remat="full"))
+        state, _ = step(state, batches[0])
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for b in batches[1:1 + REMAT_TIMED]:
+            state, m = step(state, b)
+        end.record()
+        torch.cuda.synchronize()
+        full_ms = start.elapsed_time(end) / REMAT_TIMED
+        check(math.isfinite(m["loss"].item()), f"train {cfg.name}: remat "
+              f"full's timed steps: finite loss")
+        rec["full"].update({"step_ms": full_ms, "none_step_ms": step_ms,
+                            "step_over_none": full_ms / step_ms})
+    log("train", {"check": "remat", **rec,
+                  "seconds": time.perf_counter() - t0})
+    return rec["full"]["launches"]
+
+
 def phase_train(arch: str, depth, seq: int, check_depth: int,
-                check_seq: int):
-    """Train at full width (``depth`` layers, None: all): 3 warm-up and 10
-    timed steps with the launch counts of one, a profiled step, the
-    learning check; then the card-vs-CPU checks at ``check_depth``.
-    Returns the counted step's launches."""
+                check_seq: int, timed: int):
+    """Train at full width (``depth`` layers, None: all): 3 warm-up and
+    ``timed`` timed steps with the launch counts of one, a profiled step,
+    remat against the plain step (``_remat_check``), the learning check;
+    then the card-vs-CPU checks at ``check_depth``.  Returns the counted
+    step's launches and the remat "full" step's."""
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.data import DataPipeline
@@ -2086,7 +2284,7 @@ def phase_train(arch: str, depth, seq: int, check_depth: int,
     ex = train_exec_config(cfg, torch.device("cuda"))
     shape = ShapeConfig("train", "train", seq, TRAIN_BATCH)
     pipe = DataPipeline(cfg, shape, SEED, ex=ex)
-    batches = [pipe.batch_at(i) for i in range(TRAIN_WARMUP + TRAIN_TIMED)]
+    batches = [pipe.batch_at(i) for i in range(TRAIN_WARMUP + timed)]
     state = init_train_state(cfg, ex, SEED)
     step = make_train_step(cfg, ex)
     n_params = sum(p.numel() for p in state.model.parameters())
@@ -2119,8 +2317,8 @@ def phase_train(arch: str, depth, seq: int, check_depth: int,
         metrics.append(m)
     end.record()
     torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3 / TRAIN_TIMED
-    step_ms = start.elapsed_time(end) / TRAIN_TIMED
+    wall_ms = (time.perf_counter() - t0) * 1e3 / timed
+    step_ms = start.elapsed_time(end) / timed
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     losses = [m["loss"].item() for m in metrics]
     norms = [m["grad_norm"].item() for m in metrics]
@@ -2149,7 +2347,10 @@ def phase_train(arch: str, depth, seq: int, check_depth: int,
                   "peak_mem_gb": peak_gb, "state_gb_reckoned": state_gb,
                   "params_b": n_params / 1e9,
                   "losses": losses, "grad_norms": norms, "profile": prof})
-    del state, step, metrics, batches
+    del step, metrics
+    remat_launches = _remat_check(arch, cfg, ex, state, batches[-1], seq,
+                                  mods, step_ms, batches)
+    del state, batches
     torch.cuda.empty_cache()
 
     # the learning check: one fixed batch, the substrate test's schedule
@@ -2177,7 +2378,7 @@ def phase_train(arch: str, depth, seq: int, check_depth: int,
     _train_check(arch, check_depth, check_seq)
     log("train", f"{cfg.name}: phase wall {time.perf_counter() - t_phase:.1f}"
         " s")
-    return launches
+    return launches, remat_launches
 
 
 # ---------------------------------------------------------------------------
@@ -2531,6 +2732,8 @@ def phase_resume():
 # 11. shard: the sharded trainer on a one-rank NCCL mesh
 # ---------------------------------------------------------------------------
 SHARD_ARCH, SHARD_STEPS = "tinyllama-1.1b", 3
+# TinyLlama's steps under remat "full", sharded and not, bit for bit
+SHARD_REMAT_STEPS = 2
 SHARD_MOE_ARCH, SHARD_MOE_DEPTH = "mixtral-8x7b", 1
 # the a2a layer against the dense one: the same function at one model
 # rank, so any difference is a sum order; the gmm inside the a2a against
@@ -2572,10 +2775,11 @@ def _max_diff(a: torch.Tensor, b: torch.Tensor) -> tuple:
         torch.equal(a, b), d, d / max(b.float().abs().max().item(), 1e-30)
 
 
-def _shard_dense(mesh, mods):
-    """TinyLlama at full width and depth: SHARD_STEPS steps through
-    ``make_train_step`` and through ``build_sharded_train`` from the same
-    init and batches -> (the sharded steps' launches, the record)."""
+def _shard_dense(mesh, mods, remat="none", steps=SHARD_STEPS):
+    """TinyLlama at full width and depth under ``remat``: ``steps`` steps
+    through ``make_train_step`` and through ``build_sharded_train`` from
+    the same init and batches -> (the sharded steps' launches, the
+    record).  Under remat the two must agree bit for bit."""
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.data import DataPipeline
@@ -2583,10 +2787,11 @@ def _shard_dense(mesh, mods):
     from repro_torch.launch.train import build_sharded_train, train_exec_config
 
     cfg = get_config(SHARD_ARCH)
-    ex = train_exec_config(cfg, torch.device("cuda"))
+    ex = dataclasses.replace(train_exec_config(cfg, torch.device("cuda")),
+                             remat=remat)
     shape = ShapeConfig("train", "train", TRAIN_SEQ_SHARD, TRAIN_BATCH)
     pipe = DataPipeline(cfg, shape, SEED, ex=ex)
-    batches = [pipe.batch_at(i) for i in range(SHARD_STEPS)]
+    batches = [pipe.batch_at(i) for i in range(steps)]
 
     torch.cuda.reset_peak_memory_stats()
     state = init_train_state(cfg, ex, SEED)
@@ -2606,10 +2811,11 @@ def _shard_dense(mesh, mods):
     state, losses, ms = _timed_steps(step, state, batches)
     launches = {name: m.launches for name, m in mods.items()}
     peak = torch.cuda.max_memory_allocated() / 1e9
-    expected = {k: SHARD_STEPS * n for k, n in
-                expected_train_launches(cfg, TRAIN_SEQ_SHARD).items()}
-    check(launches == expected, f"shard {cfg.name}: launches {launches}, "
-          f"expected {expected}")
+    one = (expected_train_launches if remat == "none"
+           else expected_remat_launches)(cfg, TRAIN_SEQ_SHARD)
+    expected = {k: steps * n for k, n in one.items()}
+    check(launches == expected, f"shard {cfg.name} remat {remat}: launches "
+          f"{launches}, expected {expected}")
     diffs = {n: _max_diff(p.detach().to_local(), plain[n])
              for n, p in state.model.named_parameters()}
     worst = max(diffs, key=lambda n: diffs[n][2])
@@ -2617,15 +2823,18 @@ def _shard_dense(mesh, mods):
     loss_gap = max(abs(a - b) / abs(b) for a, b in zip(losses, plain_losses))
     check(all(math.isfinite(v) for v in losses), f"shard {cfg.name}: finite "
           f"losses {losses}")
-    check(bitwise or (loss_gap < 1e-6 and diffs[worst][2] < 1e-6),
-          f"shard {cfg.name}: sharded vs make_train_step: losses {losses} vs "
-          f"{plain_losses}, worst parameter {worst} {diffs[worst]}")
+    check(bitwise or (remat == "none" and loss_gap < 1e-6
+                      and diffs[worst][2] < 1e-6),
+          f"shard {cfg.name} remat {remat}: sharded vs make_train_step: "
+          f"losses {losses} vs {plain_losses}, worst parameter {worst} "
+          f"{diffs[worst]}")
     n_params = sum(p.numel() for p in plain.values())
     del state, plain
     torch.cuda.empty_cache()
     return launches, {
         "model": cfg.name, "layers": cfg.n_layers, "params_b": n_params / 1e9,
-        "batch": TRAIN_BATCH, "seq": TRAIN_SEQ_SHARD, "steps": SHARD_STEPS,
+        "batch": TRAIN_BATCH, "seq": TRAIN_SEQ_SHARD, "steps": steps,
+        "remat": remat,
         "bit_for_bit": bitwise, "losses": losses,
         "make_train_step_losses": plain_losses, "max_loss_rel_gap": loss_gap,
         "worst_param": worst, "worst_param_max_abs_diff": diffs[worst][1],
@@ -2636,6 +2845,14 @@ def _shard_dense(mesh, mods):
             plain_ms[1:]),
         "peak_mem_gb": peak, "make_train_step_peak_mem_gb": plain_peak,
         "launches": launches}
+
+
+def _grad_norms(state) -> torch.Tensor:
+    """Each parameter's gradient norm (a one-rank mesh's local shard is
+    the whole tensor), on the host."""
+    with torch.no_grad():
+        return torch.stack([p.grad.to_local().float().norm()
+                            for p in state.model.parameters()]).cpu()
 
 
 def _moe_layer_grads(fn, moe, h, g):
@@ -2686,6 +2903,7 @@ def _shard_moe(mesh, mods):
     n_params = sum(p.numel() for p in state.model.parameters())
     state, warm_losses, warm_ms = _timed_steps(step, state,
                                                [pipe.batch_at(0)])
+    warm_norms = _grad_norms(state)
     for mod in mods.values():
         mod.launches = 0
     state, losses, ms = _timed_steps(step, state, [pipe.batch_at(1)])
@@ -2698,6 +2916,38 @@ def _shard_moe(mesh, mods):
           f"shard {cfg.name} a2a: finite losses")
     del state, step
     torch.cuda.empty_cache()
+
+    # the first step again under remat "full": the backward recomputes
+    # the layer, the gmm's forward and the all-to-alls among it
+    ex_full = dataclasses.replace(ex, remat="full")
+    step, place = build_sharded_train(cfg, ex_full, mesh, shape)
+    state = place(init_train_state(cfg, ex_full, SEED))
+    torch.cuda.synchronize()
+    for mod in mods.values():
+        mod.launches = 0
+    state, full_losses, full_ms = _timed_steps(step, state,
+                                               [pipe.batch_at(0)])
+    full_launches = {name: mod.launches for name, mod in mods.items()}
+    full_norms = _grad_norms(state)
+    del state, step
+    torch.cuda.empty_cache()
+    expected = expected_remat_launches(cfg, TRAIN_SEQ_SHARD)
+    check(full_launches == expected, f"shard {cfg.name} a2a remat full: "
+          f"launches {full_launches}, expected {expected}")
+    loss_gap = abs(full_losses[0] - warm_losses[0]) / abs(warm_losses[0])
+    norm_gap = ((full_norms - warm_norms).abs()
+                / warm_norms.clamp_min(1e-30)).max().item()
+    check(loss_gap <= REMAT_RTOL and norm_gap <= REMAT_RTOL,
+          f"shard {cfg.name} a2a: remat full vs none: loss "
+          f"{full_losses[0]} vs {warm_losses[0]}, gradient norms {norm_gap} "
+          f"apart (tol {REMAT_RTOL})")
+    full = {"loss": full_losses[0], "step_ms": full_ms[0],
+            "loss_rel_gap": loss_gap, "max_grad_norm_rel_gap": norm_gap,
+            "bit_for_bit": full_losses[0] == warm_losses[0]
+            and torch.equal(full_norms, warm_norms),
+            "launches": full_launches}
+    for k in mods:
+        launches[k] += full_launches[k]
 
     # the layer: one model rank holds every expert; the a2a's capacity is
     # the dense one's, and both run the bf16 wgmma kernel at block_t 128
@@ -2753,7 +3003,7 @@ def _shard_moe(mesh, mods):
         "params_b": n_params / 1e9, "moe_impl": "a2a", "batch": TRAIN_BATCH,
         "seq": TRAIN_SEQ_SHARD, "warmup_step_ms": warm_ms,
         "step_ms": ms[0], "losses": warm_losses + losses,
-        "peak_mem_gb": peak, "launches": launches,
+        "peak_mem_gb": peak, "launches": launches, "remat_full": full,
         "layer": {"cap_exp": cap_exp, "capacity": cap, "block_t": bt,
                   "gmm_launches": layer_gmm, **layer_ms, "vs_dense": {
                       k: {"bit_for_bit": v[0], "max_abs_diff": v[1],
@@ -2778,14 +3028,18 @@ def phase_shard():
         mesh = _one_rank_mesh(os.path.join(tmp, "store"))
         try:
             dense_launches, dense = _shard_dense(mesh, mods)
+            remat_launches, remat = _shard_dense(mesh, mods, "full",
+                                                 SHARD_REMAT_STEPS)
             moe_launches, moe = _shard_moe(mesh, mods)
             world = dist.get_world_size()
         finally:
             dist.destroy_process_group()
-    launches = {k: dense_launches[k] + moe_launches[k] for k in mods}
+    launches = {k: dense_launches[k] + remat_launches[k] + moe_launches[k]
+                for k in mods}
     log("shard", {"card": card_line(), "world_size": world,
                   "mesh": {"data": 1, "model": 1}, "backend": "nccl",
-                  "dense": dense, "moe": moe, "launches": launches,
+                  "dense": dense, "dense_remat_full": remat, "moe": moe,
+                  "launches": launches,
                   "phase_wall_s": time.perf_counter() - t_phase})
     return launches
 
@@ -2797,6 +3051,18 @@ DRYRUN_ARCH, DRYRUN_SHAPE, DRYRUN_MESH = "tinyllama_1_1b", "train_4k", \
     "single"
 DRYRUN_TIMEOUT_S = 120
 DRYRUN_RTOL = 1e-9
+# the cell without remat (PR 32's records): "full" recomputes each
+# layer's forward, so its FLOPs rise past these and its peak falls under
+DRYRUN_NONE_FLOPS = 5.51916182437888e14
+DRYRUN_NONE_PEAK = 168166088716
+# Qwen3-MoE-235B-A22B train_4k on the two-pod (2, 16, 16) mesh, over the
+# all-to-all, on fake CUDA tensors alone: its experts' gradients
+# reduce-scatter over (pod, data) as the spec sums have it, and its
+# all-reduce stays within twice the single-pod cell's (202350249.8 B
+# without remat; 53423889441.9 on two pods before the flattened view)
+DRYRUN_MOE_ARCH, DRYRUN_MOE_MESH = "qwen3_moe_235b_a22b", "multi"
+DRYRUN_MOE_TIMEOUT_S = 600
+DRYRUN_MOE_SINGLE_ALL_REDUCE = 202350249.8
 # the keys of the reference's record (repro/launch/dryrun.py:274-300)
 DRYRUN_KEYS = (
     "arch", "shape", "mesh", "kind", "n_chips", "seq_len", "global_batch",
@@ -2815,15 +3081,25 @@ DRYRUN_SAME = (
     "coll_breakdown", "coll_counts", "spec_wire_bytes",
     "torch_flops_per_device", "kernel_flops_per_device",
     "kernel_bytes_per_device", "kernel_calls", "launches", "moe_impl",
-    "mem_argument_bytes", "mem_output_bytes", "mem_temp_bytes",
-    "mem_peak_bytes", "model_flops_step", "params", "active_params")
+    "remat", "mem_argument_bytes", "mem_output_bytes", "mem_temp_bytes",
+    "mem_peak_bytes", "mem_peak_by_op", "mem_peak_top", "model_flops_step",
+    "params", "active_params")
 
 
 class DryRuns:
-    """The dry run's cell on fake CUDA and on fake CPU tensors, two
-    subprocesses started at once (``start``) while the train phase keeps
-    the card busy (they need the host only), collected by ``phase_dryrun``
-    and stopped, whatever happens, by ``stop``."""
+    """The dry run's cells, each a subprocess, all started at once
+    (``start``) while the train phase keeps the card busy (they need the
+    host only), collected by ``phase_dryrun`` and stopped, whatever
+    happens, by ``stop``: TinyLlama's on fake CUDA and on fake CPU
+    tensors, Qwen3-MoE's two-pod cell on fake CUDA tensors."""
+
+    # name: (arch, mesh, fake tensors' device, seconds from the start,
+    # niceness: the two-pod cell has ten minutes and yields the host's
+    # cores to the train phase's CPU checks)
+    CELLS = {"cuda": (DRYRUN_ARCH, DRYRUN_MESH, "cuda", DRYRUN_TIMEOUT_S, 0),
+             "cpu": (DRYRUN_ARCH, DRYRUN_MESH, "cpu", DRYRUN_TIMEOUT_S, 0),
+             "moe_multi": (DRYRUN_MOE_ARCH, DRYRUN_MOE_MESH, "cuda",
+                           DRYRUN_MOE_TIMEOUT_S, 19)}
 
     def __init__(self):
         self.dir = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
@@ -2835,28 +3111,31 @@ class DryRuns:
             [str(ROOT / "src")] + ([env["PYTHONPATH"]]
                                    if env.get("PYTHONPATH") else []))
         self.t0 = time.perf_counter()
-        for dev in ("cuda", "cpu"):
-            with open(os.path.join(self.dir, f"{dev}.out"), "w") as out:
-                self.procs[dev] = subprocess.Popen(
+        for name, (arch, mesh, dev, _, nice) in self.CELLS.items():
+            with open(os.path.join(self.dir, f"{name}.out"), "w") as out:
+                self.procs[name] = subprocess.Popen(
                     [sys.executable, "-m", "repro_torch.launch.dryrun",
-                     "--arch", DRYRUN_ARCH, "--shape", DRYRUN_SHAPE,
-                     "--mesh", DRYRUN_MESH, "--device", dev, "--force",
-                     "--out", os.path.join(self.dir, dev)],
-                    stdout=out, stderr=subprocess.STDOUT, cwd=ROOT, env=env)
+                     "--arch", arch, "--shape", DRYRUN_SHAPE,
+                     "--mesh", mesh, "--device", dev, "--force",
+                     "--out", os.path.join(self.dir, name)],
+                    stdout=out, stderr=subprocess.STDOUT, cwd=ROOT, env=env,
+                    preexec_fn=(lambda n=nice: os.nice(n)) if nice else None)
 
     def wait(self) -> dict:
-        """-> {device: (exit code, output)}: each subprocess may run
-        DRYRUN_TIMEOUT_S from its start."""
+        """-> {cell: (exit code, output, its record's path)}: each
+        subprocess may run its CELLS timeout from its start."""
         done = {}
-        for dev, p in self.procs.items():
-            left = DRYRUN_TIMEOUT_S - (time.perf_counter() - self.t0)
+        for name, p in self.procs.items():
+            arch, mesh, _, timeout, _ = self.CELLS[name]
+            left = timeout - (time.perf_counter() - self.t0)
             try:
                 p.wait(timeout=max(left, 0.01))
             except subprocess.TimeoutExpired:
-                raise RuntimeError(f"dryrun --device {dev}: no exit within "
-                                   f"{DRYRUN_TIMEOUT_S} s of its start")
-            out = pathlib.Path(self.dir, f"{dev}.out").read_text()
-            done[dev] = (p.returncode, out)
+                raise RuntimeError(f"dryrun {name}: no exit within "
+                                   f"{timeout} s of its start")
+            out = pathlib.Path(self.dir, f"{name}.out").read_text()
+            done[name] = (p.returncode, out, pathlib.Path(
+                self.dir, name, f"{arch}__{DRYRUN_SHAPE}__{mesh}.json"))
         return done
 
     def stop(self) -> None:
@@ -2868,61 +3147,99 @@ class DryRuns:
 
 
 def phase_dryrun(runs: DryRuns):
-    """``launch.dryrun``'s TinyLlama train cell on the fake 256-rank group,
-    over fake CUDA and fake CPU tensors (``runs``, started before the
-    train phase): wire bytes against ``param_specs``, the two records
-    alike, no launch.  Returns the dry runs' launches (all 0)."""
+    """``launch.dryrun``'s cells (``runs``, started before the train
+    phase), each under its default remat "full": TinyLlama's train cell on
+    the fake 256-rank group over fake CUDA and fake CPU tensors (wire
+    bytes against ``param_specs``, each layer's kernels twice, FLOPs above
+    and peak below the cell without remat, the two records alike) and
+    Qwen3-MoE's on the fake 512-rank two-pod group (reduce-scatter against
+    ``param_specs``, all-reduce within twice the single pod's); no
+    launch.  Returns the dry runs' launches (all 0)."""
     from repro_torch.configs import SHAPES, get_config
     from repro_torch.launch.dryrun import spec_wire_bytes
     t_phase = time.perf_counter()
+    log("dryrun", f"waiting for the cells {list(runs.procs)}")
     recs = {}
-    for dev, (rc, out) in runs.wait().items():
+    for name, (rc, out, path) in runs.wait().items():
         tail = "\n".join(out.strip().splitlines()[-5:])
-        check(rc == 0, f"dryrun --device {dev}: exit code {rc}: {tail}")
-        name = f"{DRYRUN_ARCH}__{DRYRUN_SHAPE}__{DRYRUN_MESH}.json"
-        recs[dev] = json.loads(pathlib.Path(runs.dir, dev, name).read_text())
-        log("dryrun", {"device": dev, "record": recs[dev]})
+        check(rc == 0, f"dryrun {name}: exit code {rc}: {tail}")
+        recs[name] = json.loads(path.read_text())
+        log("dryrun", {"cell": name, "record": recs[name]})
     # each record counts its own process's launches by kernel module
     launches = {
         name: sum(r["launches"].get(m.__name__.rsplit(".", 1)[1], 0)
                   for r in recs.values())
         for name, m in _kernel_modules().items()}
+    for name, rec in recs.items():
+        missing = [k for k in DRYRUN_KEYS if k not in rec]
+        check(not missing and not rec.get("skipped"),
+              f"dryrun {name}: skipped or missing keys {missing}")
+        check(not any(rec["launches"].values()),
+              f"dryrun {name}: kernels launched {rec['launches']}")
+        check(rec["remat"] == "full", f"dryrun {name}: remat {rec['remat']}")
+        check(all(math.isfinite(rec[k]) and rec[k] > 0 for k in (
+            "hlo_flops_per_device", "hlo_bytes_per_device",
+            "mem_argument_bytes", "mem_temp_bytes")),
+              f"dryrun {name}: positive finite flops, bytes and memory")
     cfg = get_config(DRYRUN_ARCH)
     want = spec_wire_bytes(cfg, SHAPES[DRYRUN_SHAPE],
                            {"data": 16, "model": 16})
-    for dev, rec in recs.items():
-        missing = [k for k in DRYRUN_KEYS if k not in rec]
-        check(not missing and not rec.get("skipped"),
-              f"dryrun {dev}: skipped or missing keys {missing}")
+    # under remat each layer's flash and norms (ln1, ln2) run again
+    calls = {"flash_attention_fwd": 2 * cfg.n_layers,
+             "rmsnorm": 2 * 2 * cfg.n_layers + 1}
+    for dev in ("cuda", "cpu"):
+        rec = recs[dev]
         check(rec["n_chips"] == 256 and rec["device"] == dev,
               f"dryrun {dev}: {rec['n_chips']} chips on {rec['device']}")
-        check(not any(rec["launches"].values()),
-              f"dryrun {dev}: kernels launched {rec['launches']}")
-        check(rec["kernel_calls"].get("flash_attention_fwd") == cfg.n_layers,
-              f"dryrun {dev}: flash's fake calls {rec['kernel_calls']}")
+        check(rec["kernel_calls"] == calls, f"dryrun {dev}: fake kernel "
+              f"calls {rec['kernel_calls']}, expected {calls}")
         for kind in ("all-gather", "reduce-scatter"):
             got = rec["coll_breakdown"].get(kind, 0.0)
             check(abs(got - want[kind]) <= DRYRUN_RTOL * want[kind],
                   f"dryrun {dev}: {kind} wire bytes {got!r}, param_specs "
                   f"gives {want[kind]!r}")
-        check(all(math.isfinite(rec[k]) and rec[k] > 0 for k in (
-            "hlo_flops_per_device", "hlo_bytes_per_device",
-            "mem_argument_bytes", "mem_temp_bytes")),
-              f"dryrun {dev}: positive finite flops, bytes and memory")
+        check(rec["hlo_flops_per_device"] > DRYRUN_NONE_FLOPS and
+              rec["mem_peak_bytes"] < DRYRUN_NONE_PEAK,
+              f"dryrun {dev}: remat full's FLOPs "
+              f"{rec['hlo_flops_per_device']} (above {DRYRUN_NONE_FLOPS}) "
+              f"and peak {rec['mem_peak_bytes']} (below {DRYRUN_NONE_PEAK})")
     differ = {k: (recs["cuda"][k], recs["cpu"][k]) for k in DRYRUN_SAME
               if recs["cuda"][k] != recs["cpu"][k]}
     check(not differ, f"dryrun: the CUDA and CPU records differ in {differ}")
+    moe = recs["moe_multi"]
+    moe_want = spec_wire_bytes(get_config(DRYRUN_MOE_ARCH),
+                               SHAPES[DRYRUN_SHAPE],
+                               {"pod": 2, "data": 16, "model": 16}, a2a=True)
+    got = moe["coll_breakdown"].get("reduce-scatter", 0.0)
+    check(moe["n_chips"] == 512 and moe["moe_impl"] == "a2a" and
+          abs(got - moe_want["reduce-scatter"])
+          <= DRYRUN_RTOL * moe_want["reduce-scatter"],
+          f"dryrun moe_multi: {moe['n_chips']} chips, {moe['moe_impl']}, "
+          f"reduce-scatter {got!r}, param_specs gives "
+          f"{moe_want['reduce-scatter']!r}")
+    all_reduce = moe["coll_breakdown"].get("all-reduce", 0.0)
+    check(all_reduce <= 2 * DRYRUN_MOE_SINGLE_ALL_REDUCE,
+          f"dryrun moe_multi: all-reduce {all_reduce} B, past twice the "
+          f"single pod's {DRYRUN_MOE_SINGLE_ALL_REDUCE}")
     rec = recs["cuda"]
     log("dryrun", {
         "card": card_line(), "cell": f"{DRYRUN_ARCH} {DRYRUN_SHAPE} "
-        f"{DRYRUN_MESH}", "spec_wire_bytes": want,
-        "wall_s": {dev: r["wall_s"] for dev, r in recs.items()},
-        "trace_s": {dev: r["compile_s"] for dev, r in recs.items()},
+        f"{DRYRUN_MESH}", "remat": rec["remat"], "spec_wire_bytes": want,
+        "wall_s": {n: r["wall_s"] for n, r in recs.items()},
+        "trace_s": {n: r["compile_s"] for n, r in recs.items()},
         "flops_per_device": rec["hlo_flops_per_device"],
         "wire_bytes_per_device": rec["coll_wire_bytes_per_device"],
         "peak_bytes_per_device": rec["mem_peak_bytes"],
-        "roofline": rec["roofline"], "launches": launches,
-        "wait_s": time.perf_counter() - t_phase})
+        "peak_by_op": rec["mem_peak_by_op"], "peak_top": rec["mem_peak_top"],
+        "kernel_calls": rec["kernel_calls"],
+        "roofline": rec["roofline"], "moe_multi": {
+            "cell": f"{DRYRUN_MOE_ARCH} {DRYRUN_SHAPE} {DRYRUN_MOE_MESH}",
+            "spec_wire_bytes": moe_want,
+            "coll_breakdown": moe["coll_breakdown"],
+            "flops_per_device": moe["hlo_flops_per_device"],
+            "peak_bytes_per_device": moe["mem_peak_bytes"],
+            "kernel_calls": moe["kernel_calls"]},
+        "launches": launches, "wait_s": time.perf_counter() - t_phase})
     return launches
 
 
@@ -3216,7 +3533,8 @@ def main() -> int:
         # phase's steps keep the card busy
         dryruns.start()
         for arch, label, *shape in TRAIN_PATHS:
-            by_path[label] = phase_train(arch, *shape)
+            by_path[label], by_path[f"{label}_remat_full"] = \
+                phase_train(arch, *shape)
         log("done", f"grad and train phases in "
             f"{time.perf_counter() - t_new:.1f} s")
         t_new = time.perf_counter()
@@ -3228,11 +3546,7 @@ def main() -> int:
         by_path["shard"] = phase_shard()
         log("done", f"shard phase in {time.perf_counter() - t_new:.1f} s")
         t_new = time.perf_counter()
-        try:
-            by_path["dryrun"] = phase_dryrun(dryruns)
-        except Exception as e:
-            print(f"[fail] dryrun: {e}", flush=True)
-            raise
+        by_path["dryrun"] = phase_dryrun(dryruns)
         log("done", f"dryrun phase in {time.perf_counter() - t_new:.1f} s")
     finally:
         dryruns.stop()
@@ -3275,5 +3589,14 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(ranks_main(sys.argv[1:]) if "--ranks" in sys.argv[1:]
-             else main())
+    try:
+        sys.exit(ranks_main(sys.argv[1:]) if "--ranks" in sys.argv[1:]
+                 else main())
+    except Exception as e:
+        # the failing phase: the innermost phase_* function on the stack
+        import traceback
+        phase = next((f.name[len("phase_"):] for f in reversed(
+            traceback.extract_tb(e.__traceback__))
+            if f.name.startswith("phase_")), "main")
+        print(f"[fail] {phase}: {e}", flush=True)
+        raise

@@ -53,13 +53,10 @@ def _is_fake(*tensors) -> bool:
     return any(isinstance(t, FakeTensor) for t in tensors)
 
 
-def _counts():
-    """The dry run's active kernel counts, or None."""
+def _count(kernel: str, work: tuple) -> None:
+    """Add a fake call's work to the dry run's active kernel counts."""
     from repro_torch.launch.hlo import active_kernel_counts
-    return active_kernel_counts()
-
-
-def _count(counts, kernel: str, work: tuple) -> None:
+    counts = active_kernel_counts()
     if counts is not None:
         counts.add(kernel, *work)
 
@@ -67,7 +64,7 @@ def _count(counts, kernel: str, work: tuple) -> None:
 def _fa_forward(q, k, v, window, causal, softcap, scale, block):
     if _is_fake(q, k, v):
         (b, hq, sq, d), (hkv, sk) = q.shape, k.shape[1:3]
-        _count(_counts(), "flash_attention_fwd", cost.flash_fwd_cost(
+        _count("flash_attention_fwd", cost.flash_fwd_cost(
             b, hq, hkv, sq, sk, d, window, causal, q.element_size()))
         return torch.empty_like(q), q.new_empty((b, hq, sq),
                                                 dtype=torch.float32)
@@ -171,7 +168,7 @@ class _RMSNorm(torch.autograd.Function):
         ctx.cfg = (eps, weight_offset)
         if _is_fake(x, w):
             d = x.shape[-1]
-            _count(_counts(), "rmsnorm", cost.rmsnorm_cost(
+            _count("rmsnorm", cost.rmsnorm_cost(
                 x.numel() // d if d else 0, d, x.element_size()))
             return torch.empty_like(x)
         if _is_cuda(x, w):
@@ -206,7 +203,7 @@ class _SSD(torch.autograd.Function):
         ctx.set_materialize_grads(False)
         if _is_fake(x, dt, A, B, C):
             (bb, s, h, p), (g, n) = x.shape, B.shape[2:]
-            _count(_counts(), "ssd_scan", cost.ssd_cost(
+            _count("ssd_scan", cost.ssd_cost(
                 bb, s, h, p, g, n, chunk, x.element_size(),
                 dt.element_size(), return_state))
             y = torch.empty_like(x)
@@ -241,12 +238,10 @@ def ssd(x, dt, A, B, C, *, chunk=128, return_state=False):
     return _SSD.apply(x, dt, A, B, C, chunk, return_state)
 
 
-def _gmm_forward(x, w, block_group_ids, block_t, counts=None):
-    """``counts``: where a fake call adds its work (the active counts
-    when None)."""
+def _gmm_forward(x, w, block_group_ids, block_t):
     if _is_fake(x, w, block_group_ids):
         (t, k), (e, _, n) = x.shape, w.shape
-        _count(counts or _counts(), "moe_gmm",
+        _count("moe_gmm",
                cost.gmm_cost(t, k, n, e, x.element_size()))
         return x.new_empty((t, n))
     if _is_cuda(x, w, block_group_ids):
@@ -267,8 +262,6 @@ class _MoEGMM(torch.autograd.Function):
     def forward(ctx, x, w, block_group_ids, block_t):
         ctx.save_for_backward(x, w, block_group_ids)
         ctx.block_t = block_t
-        # the backward may run on another thread: it counts here
-        ctx.counts = _counts() if _is_fake(x, w, block_group_ids) else None
         return _gmm_forward(x, w, block_group_ids, block_t)
 
     @staticmethod
@@ -278,11 +271,10 @@ class _MoEGMM(torch.autograd.Function):
         dy = dy.contiguous()
         dx = dw = None
         if ctx.needs_input_grad[0]:
-            dx = _gmm_forward(dy, w.transpose(1, 2).contiguous(), ids, bt,
-                              ctx.counts)
+            dx = _gmm_forward(dy, w.transpose(1, 2).contiguous(), ids, bt)
         if ctx.needs_input_grad[1] and _is_fake(x, dy, w):
             (t, k), (e_n, _, n) = x.shape, w.shape
-            _count(ctx.counts, "moe_gmm_dw",
+            _count("moe_gmm_dw",
                    cost.gmm_cost(t, k, n, e_n, x.element_size()))
             dw = torch.empty_like(w)
         elif ctx.needs_input_grad[1]:

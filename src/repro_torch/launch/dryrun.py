@@ -13,13 +13,16 @@ compiler: each cell runs the port's own step once, eagerly, as rank 0 of
 a ``"fake"`` process group (no communication, no other process), with
 every tensor a fake one (``FakeTensorMode``: shapes and dtypes, no
 memory, no kernel).  Train cells run one step of
-``launch/train.py::build_sharded_train``; prefill and decode cells run
+``launch/train.py::build_sharded_train`` under the reference's dry-run
+remat, ``ExecConfig(remat="full")`` (each layer body recomputed in the
+backward); prefill and decode cells run
 ``make_prefill_step`` and ``make_serve_step`` on a module sharded by
 ``parallel/fsdp.py::shard_module`` with ``param_specs`` (decode's cache
 placed by ``cache_specs``).  Around the step only:
   * ``launch/hlo.py::collectives_from_trace``: each collective's result
     and ring wire bytes, and the bytes every other op reads and writes;
-  * ``FlopCounterMode``: the FLOPs of the torch ops (the backwards in
+  * ``FlopCounterMode`` (``hlo.counting_flops``, without its per-module
+    tracker): the FLOPs of the torch ops (the backwards in
     torch ops among them), to which the hand kernels' fake branches add
     their nominal operations and bytes (``hlo.counting_kernels``);
   * and the peak of the rank's live storages (``collectives_from_trace``
@@ -114,15 +117,18 @@ def skip_reason(cfg: ModelConfig, shape, sizes) -> str | None:
     return None
 
 
-def exec_config(cfg: ModelConfig, shape, device, mesh) -> ExecConfig:
+def exec_config(cfg: ModelConfig, shape, device, mesh,
+                remat: str = "full") -> ExecConfig:
     """The reference's dry-run knobs that the port has: bf16 parameters
-    and compute, its attention block and SSD chunk; the all-to-all where
-    the experts divide the model axis (train only: serving runs the
-    dense dispatch)."""
+    and compute, its remat ("full": each layer body recomputed in the
+    backward; serving runs without grad, where remat does nothing), its
+    attention block and SSD chunk; the all-to-all where the experts
+    divide the model axis (train only: serving runs the dense
+    dispatch)."""
     long = shape.seq_len >= 32768
     a2a = cfg.moe is not None and shape.kind == "train" \
         and _ep_on_model(cfg, axis_sizes(mesh))
-    return ExecConfig(param_dtype=DTYPE, compute_dtype=DTYPE,
+    return ExecConfig(param_dtype=DTYPE, compute_dtype=DTYPE, remat=remat,
                       attn_block=2048 if long else 1024,
                       ssd_chunk=1024 if long else 256, device=str(device),
                       moe_impl="a2a" if a2a else "dense",
@@ -167,9 +173,9 @@ def spec_wire_bytes(cfg: ModelConfig, shape, mesh_sizes,
     ``model`` shard under the all-to-all) is S·(N-1)/N on the wire for S
     its gathered bytes and N those axes' ranks, whatever order the axes
     go in; its gradient's reduce-scatter the same.  The forward reads
-    each parameter once and the backward gathers it again, but for a
-    lookup table (an untied embedding), which the backward does not
-    read.  Under the all-to-all each MoE layer gathers its output and,
+    each parameter once and the backward gathers it again (for a layer
+    under remat, in its recompute), but for a lookup table (an untied
+    embedding), which the backward does not read.  Under the all-to-all each MoE layer gathers its output and,
     in the backward, the gradient of its input over the model axis.
     Holds for the transformer families (dense, moe, vlm); None for
     others and for serving cells."""
@@ -310,31 +316,42 @@ def _launches() -> dict:
             for m in _KERNEL_MODULES}
 
 
-def measure(cfg: ModelConfig, shape, mesh, device) -> dict:
+def measure(cfg: ModelConfig, shape, mesh, device, remat: str = "full"
+            ) -> dict:
     """Trace one step of ``shape.kind`` for ``cfg`` on ``mesh`` (a
-    ``DeviceMesh`` over a fake group) over fake tensors on ``device`` ->
-    the record's measured fields."""
+    ``DeviceMesh`` over a fake group) over fake tensors on ``device``
+    under ``remat`` (``ExecConfig.remat``) -> the record's measured
+    fields."""
     from torch._subclasses.fake_tensor import FakeTensorMode
-    from torch.utils.flop_counter import FlopCounterMode
     device = torch.device(device)
     sizes = axis_sizes(mesh)
     t0 = time.perf_counter()
-    ex = exec_config(cfg, shape, device, mesh)
+    ex = exec_config(cfg, shape, device, mesh, remat)
     fake_mode = FakeTensorMode(allow_non_fake_inputs=True)
     step, args, arg_bytes, tracked = _prepare(cfg, shape, ex, mesh,
                                               fake_mode)
     t_lower = time.perf_counter() - t0
     before = _launches()
+    # the first remat checkpoint imports torch._dynamo, whose frames would
+    # hold the step's frames in a reference cycle (freed whenever the
+    # cyclic collector runs, which would move the live storages' peak):
+    # it is imported here
+    from torch import _dynamo  # noqa: F401
     with fake_mode:
         t0 = time.perf_counter()
+        # the backward on this thread for fake CUDA tensors too, as for
+        # CPU ones: a remat body's recompute then counts its kernels (the
+        # counts are this thread's context variable)
         with hlo_mod.collectives_from_trace() as trace, \
-                FlopCounterMode(display=False) as flops, \
-                hlo_mod.counting_kernels() as kernels:
+                hlo_mod.counting_flops() as flops, \
+                hlo_mod.counting_kernels() as kernels, \
+                torch.autograd.set_multithreading_enabled(False):
             trace.track(tracked)
             start = trace.live_bytes
             out = step(*args)
         t_trace = time.perf_counter() - t0
         peak = trace.peak_bytes
+        peak_by_op, peak_top = trace.peak_breakdown()
         out_bytes = _out_bytes(out, args)
     launched = {m: n - before[m] for m, n in _launches().items()}
     coll = trace.stats
@@ -369,10 +386,14 @@ def measure(cfg: ModelConfig, shape, mesh, device) -> dict:
         "kernel_calls": kernels.calls,
         "launches": launched,
         "moe_impl": ex.moe_impl if cfg.moe is not None else None,
+        "remat": ex.remat,
         "mem_argument_bytes": arg_bytes,
         "mem_output_bytes": out_bytes,
         "mem_temp_bytes": float(peak - start),
         "mem_peak_bytes": float(peak),
+        # what holds the peak: the live storages by the op that made them
+        # and the largest (op, shape, dtype) groups among them
+        "mem_peak_by_op": peak_by_op, "mem_peak_top": peak_top,
         "mem_generated_code_bytes": 0.0,
         "roofline": hlo_mod.roofline_terms(flops_x, bytes_x,
                                            coll.total_wire, n_chips),

@@ -151,36 +151,63 @@ class _Trace(TorchDispatchMode):
         self.hbm_bytes = 0.0
         self.live_bytes = self.peak_bytes = 0
         self._live: set = set()
+        # each storage: [made at, freed at (None: alive), bytes, the op
+        # that made it, its tensor's shape and dtype]; a clock of storages
+        self._storages: list = []
+        self._clock = self._peak_at = 0
 
     def track(self, tensors) -> None:
         """Count the storages of ``tensors`` (made before the trace) as
         live until they are freed."""
         for t in _tensors(list(tensors)):
-            self._add(t)
+            self._add(t, "before the step")
 
-    def _add(self, t) -> None:
+    def _add(self, t, op: str) -> None:
         for st in _storages(t):
             key = StorageWeakRef(st)
             if key in self._live:
                 continue
             n = st.nbytes()
             self._live.add(key)
-            weakref.finalize(st, self._free, key, n)
+            self._clock += 1
+            rec = [self._clock, None, n, op, tuple(t.shape),
+                   str(t.dtype).replace("torch.", "")]
+            self._storages.append(rec)
+            weakref.finalize(st, self._free, key, n, rec)
             self.live_bytes += n
-            self.peak_bytes = max(self.peak_bytes, self.live_bytes)
+            if self.live_bytes > self.peak_bytes:
+                self.peak_bytes, self._peak_at = self.live_bytes, self._clock
 
-    def _free(self, key, n) -> None:
+    def _free(self, key, n, rec) -> None:
         self._live.discard(key)
         self.live_bytes -= n
+        self._clock += 1
+        rec[1] = self._clock
+
+    def peak_breakdown(self, top: int = 10) -> tuple:
+        """The storages live at the peak -> ({op that made them: bytes},
+        the ``top`` largest groups of (op, shape, dtype) as [op, shape,
+        dtype, count, bytes])."""
+        by_op, groups = {}, {}
+        for made, freed, n, op, shape, dtype in self._storages:
+            if made <= self._peak_at and (freed is None
+                                          or freed > self._peak_at):
+                by_op[op] = by_op.get(op, 0) + n
+                g = groups.setdefault((op, shape, dtype), [0, 0])
+                g[0] += 1
+                g[1] += n
+        ranked = sorted(groups.items(), key=lambda kv: -kv[1][1])[:top]
+        return by_op, [[op, list(shape), dtype, c, n]
+                       for (op, shape, dtype), (c, n) in ranked]
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
         if func is _DEVICE:             # a wrapper's .device: metadata
             return out
-        for t in _tensors(out):
-            self._add(t)
         name = _op_name(func)
+        for t in _tensors(out):
+            self._add(t, name)
         if name in _COLLECTIVE_OPS:
             kind, arg = _COLLECTIVE_OPS[name]
             named = dict(zip((a.name for a in func._schema.arguments), args))
@@ -210,6 +237,30 @@ def collectives_from_trace():
         yield mode
 
 
+class _NoModules:
+    """Stands in for ``FlopCounterMode``'s per-module tracker: every op
+    counts under "Global" alone, and no module or gradient hook is
+    registered (the tracker's hooks make reference cycles that hold the
+    traced tensors until the cyclic collector runs, so the live
+    storages' peak would move with its timing)."""
+    parents = ("Global",)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+def counting_flops():
+    """A ``FlopCounterMode`` (its registry's FLOPs of every torch op,
+    ``get_total_flops``) that tracks no module."""
+    from torch.utils.flop_counter import FlopCounterMode
+    mode = FlopCounterMode(display=False)
+    mode.mod_tracker = _NoModules()
+    return mode
+
+
 @dataclass
 class KernelCounts:
     """The nominal work of the hand kernels' fake calls: operations,
@@ -236,9 +287,9 @@ def active_kernel_counts() -> Optional[KernelCounts]:
 @contextmanager
 def counting_kernels():
     """Make a fresh ``KernelCounts`` active for the hand kernels' fake
-    calls inside; yields it.  A backward that runs on another thread
-    (the autograd engine's device threads) adds to the counts its forward
-    found (``kernels/ops.py`` keeps them on the autograd context)."""
+    calls inside; yields it.  A context variable of this thread: a
+    backward counts only where it runs here (``launch/dryrun.py`` keeps
+    the autograd engine off its device threads)."""
     counts = KernelCounts()
     token = _KERNELS.set(counts)
     try:

@@ -27,6 +27,28 @@ class _Bound(torch.nn.Module):
         return self.fn(self.model, *args)
 
 
+def _cast_params(model: torch.nn.Module, ex: ExecConfig):
+    """The model's parameters for ``functional_call``, the floating ones
+    in ``ex.compute_dtype``, or None where the module itself serves:
+    they already are, or it is sharded (``parallel/fsdp.py`` casts each
+    parameter where it gathers it)."""
+    params = dict(model.named_parameters())
+    if all(p.dtype == ex.compute_dtype or isinstance(p, DTensor)
+           for p in params.values() if p.is_floating_point()):
+        return None
+    return {f"model.{n}": p.to(ex.compute_dtype) if p.is_floating_point()
+            else p for n, p in params.items()}
+
+
+def _call_with(fn, model: torch.nn.Module, params, *args):
+    """``fn(model, *args)`` with ``params`` (``_cast_params``') in place
+    of the model's parameters for this call only, or on the module itself
+    where ``params`` is None."""
+    if params is None:
+        return fn(model, *args)
+    return functional_call(_Bound(model, fn), params, args)
+
+
 def _call_cast(fn, model: torch.nn.Module, ex: ExecConfig, *args):
     """``fn(model, *args)`` with the model's floating parameters in
     ``ex.compute_dtype``: the module itself when they already are, else
@@ -34,13 +56,7 @@ def _call_cast(fn, model: torch.nn.Module, ex: ExecConfig, *args):
     its ``param_dtype``, as the reference's parameters do (it casts them
     inside every call).  A sharded module (``parallel/fsdp.py``) casts
     each parameter where it gathers it, so it is called as it is."""
-    params = dict(model.named_parameters())
-    if all(p.dtype == ex.compute_dtype or isinstance(p, DTensor)
-           for p in params.values() if p.is_floating_point()):
-        return fn(model, *args)
-    cast = {f"model.{n}": p.to(ex.compute_dtype) if p.is_floating_point()
-            else p for n, p in params.items()}
-    return functional_call(_Bound(model, fn), cast, args)
+    return _call_with(fn, model, _cast_params(model, ex), *args)
 
 
 def _local(t):
@@ -71,36 +87,40 @@ def _microbatches(batch: dict, accum: int):
 
 def make_grad_step(cfg: ModelConfig, ex: ExecConfig, *, accum: int = 1):
     """grad_step(model, batch) -> (loss, metrics): the loss in
-    ``ex.compute_dtype`` through ``_call_cast`` (the parameters stay in
+    ``ex.compute_dtype`` on ``_cast_params``' copies (the parameters stay in
     ``param_dtype``, float32 master weights, and take the gradients
     through the cast) and its backward into each parameter's ``.grad``,
-    which it clears first.  ``accum`` > 1 splits the batch's leading dim
-    into microbatches run in turn; their gradients sum in ``.grad``
+    which it clears first.  The backward runs inside the same call, so
+    that a layer that ``ex.remat`` recomputes there reads the same cast
+    parameters as its forward.  ``accum`` > 1 splits the batch's leading
+    dim into microbatches run in turn; their gradients sum in ``.grad``
     (float32 with float32 master weights, as the reference's float32 sum)
     and the loss is their mean.  metrics: ce, aux."""
     model_fns = build_model(cfg)
     record = torch.profiler.record_function
 
-    def loss_fn(model, batch):
-        return _call_cast(model_fns.loss, model, ex, batch, ex)
+    def forward_backward(model, batch):
+        with record("train.forward"):
+            loss, metrics = model_fns.loss(model, batch, ex)
+        with record("train.backward"):
+            loss.backward()
+        return loss.detach(), metrics
+
+    def micro(model, batch):
+        with record("train.forward"):
+            cast = _cast_params(model, ex)
+        return _call_with(forward_backward, model, cast, batch)
 
     def grad_step(model, batch):
         params = dict(model.named_parameters())
         for p in params.values():
             p.grad = None
         if accum == 1:
-            with record("train.forward"):
-                loss, metrics = loss_fn(model, batch)
-            with record("train.backward"):
-                loss.backward()
+            loss, metrics = micro(model, batch)
         else:
             loss = 0.0
             for mb in _microbatches(batch, accum):
-                with record("train.forward"):
-                    mloss, _ = loss_fn(model, mb)
-                with record("train.backward"):
-                    mloss.backward()
-                loss = loss + mloss.detach()
+                loss = loss + micro(model, mb)[0]
             loss = loss / accum
             metrics = {"ce": loss, "aux": 0.0}
         missing = [n for n, p in params.items() if p.grad is None]

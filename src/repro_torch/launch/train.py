@@ -58,13 +58,15 @@ from repro_torch.parallel.sharding import (axis_sizes, batch_specs,
 from repro_torch.runtime import FaultTolerantLoop
 
 
-def train_exec_config(cfg, device) -> ExecConfig:
+def train_exec_config(cfg, device, remat: str = "none") -> ExecConfig:
     """float32 parameters; bfloat16 compute on the card, float32 on the
-    CPU; the config's SSD chunk."""
+    CPU; the config's SSD chunk; ``remat``, ``ExecConfig.remat`` (the
+    reference's trainer has no flag for it: the CLI trains under
+    "none")."""
     compute = torch.bfloat16 if device.type == "cuda" else torch.float32
     return ExecConfig(param_dtype=torch.float32, compute_dtype=compute,
                       ssd_chunk=cfg.ssm.chunk if cfg.ssm else 128,
-                      device=str(device))
+                      device=str(device), remat=remat)
 
 
 def build_sharded_train(cfg, ex, mesh, shape, accum=1, base_lr=3e-4,

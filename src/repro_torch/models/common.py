@@ -10,12 +10,17 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ops
 
+REMAT_POLICIES = ("none", "full", "dots")
+
 
 @dataclass(frozen=True)
 class ExecConfig:
     """Runtime execution knobs (orthogonal to the architecture config)."""
     param_dtype: torch.dtype = torch.float32
     compute_dtype: torch.dtype = torch.float32
+    # activation checkpointing of each family's layer body in a train
+    # forward (``wrap_remat``): 'none' | 'full' | 'dots'
+    remat: str = "none"
     # key tile of the plain attention path (the CUDA kernel's is fixed)
     attn_block: int = 128
     # SSD chunk length (ops.ssd cuts it to the sequence length)
@@ -28,6 +33,53 @@ class ExecConfig:
     # the torch DeviceMesh the step runs on, required when moe_impl ==
     # "a2a"
     mesh: Any = None
+
+    def __post_init__(self):
+        if self.remat not in REMAT_POLICIES:
+            raise ValueError(f"remat={self.remat!r}: not one of "
+                             f"{REMAT_POLICIES}")
+
+    def wrap_remat(self, fn):
+        """``fn`` (a layer body: tensors in, tensors out) under this
+        config's activation checkpointing, which applies only while grad
+        is enabled (prefill and decode run ``fn`` itself):
+          * 'none': ``fn``;
+          * 'full': nothing inside is saved for the backward but the
+            inputs; the backward runs ``fn`` again
+            (``torch.utils.checkpoint``, non-reentrant);
+          * 'dots': the outputs of the matrix products that torch ops
+            compute (``DOT_OPS``) are saved and everything else is
+            recomputed, the hand kernels included: jax's
+            ``checkpoint_dots``, under which a ``pallas_call`` is not a
+            ``dot_general``."""
+        if self.remat == "none":
+            return fn
+        from torch.utils.checkpoint import checkpoint
+        kw = {"context_fn": _dots_contexts} if self.remat == "dots" else {}
+
+        def run(*args):
+            if not torch.is_grad_enabled():
+                return fn(*args)
+            return checkpoint(fn, *args, use_reentrant=False, **kw)
+
+        return run
+
+
+# the ops whose outputs 'dots' saves: what ``F.linear``, ``matmul`` and
+# ``einsum`` lower to on operands of two or more dims
+DOT_OPS = (torch.ops.aten.mm, torch.ops.aten.addmm, torch.ops.aten.bmm,
+           torch.ops.aten.baddbmm)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    from torch.utils.checkpoint import CheckpointPolicy
+    return CheckpointPolicy.MUST_SAVE if op.overloadpacket in DOT_OPS \
+        else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _dots_contexts():
+    from torch.utils.checkpoint import create_selective_checkpoint_contexts
+    return create_selective_checkpoint_contexts(_dots_policy)
 
 
 def check_device(device) -> torch.device:

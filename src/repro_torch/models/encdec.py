@@ -50,24 +50,34 @@ class EncDec(torch.nn.Module):
         self.enc_norm = torch.nn.Parameter(torch.empty(cfg.d_model, **kw))
         self.final_norm = torch.nn.Parameter(torch.empty(cfg.d_model, **kw))
 
+    def _rope(self, n: int, device):
+        a = self.cfg.attn
+        return common.rope_angles(torch.arange(n, device=device),
+                                  a.head_dim, a.rope_theta)
+
+    def _enc_layer(self, x, i: int, ex, rope):
+        """Encoder layer i over x (the reference's encoder scan body)."""
+        cfg, blk = self.cfg, self.enc_layers[i]
+        h = common.norm(x, blk.ln1, cfg.norm_eps)
+        att, _ = attention.attn_train(blk.attn, h, cfg.attn, window=None,
+                                      norm_eps=cfg.norm_eps, rope=rope,
+                                      ex=ex, causal=False)
+        x = x + att
+        h = common.norm(x, blk.ln2, cfg.norm_eps)
+        return x + blk.ffn(h, cfg)[0]
+
     def _encode(self, frames, ex):
-        cfg, a = self.cfg, self.cfg.attn
+        """Each encoder layer runs under ``ex.wrap_remat``."""
+        cfg = self.cfg
         shape = tuple(frames.shape)
         if len(shape) != 3 or shape[1:] != (cfg.encoder_len, cfg.d_model):
             raise ValueError(f"encoder_embeds {shape} must be (B, "
                              f"{cfg.encoder_len}, {cfg.d_model})")
         x = frames.to(ex.compute_dtype) + self.pos_embed
-        rope = common.rope_angles(
-            torch.arange(cfg.encoder_len, device=frames.device), a.head_dim,
-            a.rope_theta)
-        for blk in self.enc_layers:
-            h = common.norm(x, blk.ln1, cfg.norm_eps)
-            att, _ = attention.attn_train(blk.attn, h, a, window=None,
-                                          norm_eps=cfg.norm_eps, rope=rope,
-                                          ex=ex, causal=False)
-            x = x + att
-            h = common.norm(x, blk.ln2, cfg.norm_eps)
-            x = x + blk.ffn(h, cfg)[0]
+        rope = self._rope(cfg.encoder_len, frames.device)
+        body = ex.wrap_remat(self._enc_layer)
+        for i in range(len(self.enc_layers)):
+            x = body(x, i, ex, rope)
         return common.norm(x, self.enc_norm, cfg.norm_eps)
 
     @torch.no_grad()
@@ -75,27 +85,31 @@ class EncDec(torch.nn.Module):
         """frames: (B, encoder_len, D) stub embeddings -> (B, len, D)."""
         return self._encode(frames, ex)
 
+    def _dec_layer(self, i: int, x, enc, ex, rope):
+        """Decoder layer i over the full sequence x (B, S, D) and the
+        encoder output ``enc`` (the reference's decoder scan body) -> (x
+        after it, its self (k, v) (B, Hkv, S, hd), its cross (k, v) (B,
+        Hkv, encoder_len, hd))."""
+        cfg, a, blk = self.cfg, self.cfg.attn, self.dec_layers[i]
+        h = common.norm(x, blk.ln1, cfg.norm_eps)
+        att, kv = attention.attn_train(
+            blk.attn, h, a, window=None, norm_eps=cfg.norm_eps,
+            rope=rope, ex=ex)
+        x = x + att
+        h = common.norm(x, blk.ln_x, cfg.norm_eps)
+        xa, xkv = attention.attn_train(
+            blk.xattn, h, a, window=None, norm_eps=cfg.norm_eps,
+            rope=None, ex=ex, kv_source=enc)
+        x = x + xa
+        h = common.norm(x, blk.ln2, cfg.norm_eps)
+        return x + blk.ffn(h, cfg)[0], kv, xkv
+
     def _dec_layers(self, x, enc, ex):
-        """Every decoder layer over the full sequence x (B, S, D) and the
-        encoder output ``enc``, as a generator of (layer index, x after it,
-        its self (k, v) (B, Hkv, S, hd), its cross (k, v) (B, Hkv,
-        encoder_len, hd))."""
-        cfg, a = self.cfg, self.cfg.attn
-        rope = common.rope_angles(torch.arange(x.shape[1], device=x.device),
-                                  a.head_dim, a.rope_theta)
-        for i, blk in enumerate(self.dec_layers):
-            h = common.norm(x, blk.ln1, cfg.norm_eps)
-            att, kv = attention.attn_train(
-                blk.attn, h, a, window=None, norm_eps=cfg.norm_eps,
-                rope=rope, ex=ex)
-            x = x + att
-            h = common.norm(x, blk.ln_x, cfg.norm_eps)
-            xa, xkv = attention.attn_train(
-                blk.xattn, h, a, window=None, norm_eps=cfg.norm_eps,
-                rope=None, ex=ex, kv_source=enc)
-            x = x + xa
-            h = common.norm(x, blk.ln2, cfg.norm_eps)
-            x = x + blk.ffn(h, cfg)[0]
+        """Every decoder layer, as a generator of (layer index, x after
+        it, its self (k, v), its cross (k, v))."""
+        rope = self._rope(x.shape[1], x.device)
+        for i in range(len(self.dec_layers)):
+            x, kv, xkv = self._dec_layer(i, x, enc, ex, rope)
             yield i, x, kv, xkv
 
     def hidden(self, tokens, encoder_embeds, ex):
@@ -103,11 +117,16 @@ class EncDec(torch.nn.Module):
         ``encdec_loss`` up to its head): tokens (B, S) and encoder_embeds
         (B, encoder_len, D) -> the decoder's final-normed hidden (B, S,
         D): the encoder, then causal self-attention and cross-attention
-        over the encoder output (Sq != Sk) in every decoder layer."""
+        over the encoder output (Sq != Sk) in every decoder layer.  Each
+        encoder and each decoder layer runs under ``ex.wrap_remat``; only
+        x leaves a decoder layer's body."""
         enc = self._encode(encoder_embeds, ex)
         x = self.embed[tokens].to(ex.compute_dtype)
-        for _, x, _, _ in self._dec_layers(x, enc, ex):
-            pass
+        rope = self._rope(x.shape[1], x.device)
+        body = ex.wrap_remat(
+            lambda x, i: self._dec_layer(i, x, enc, ex, rope)[0])
+        for i in range(len(self.dec_layers)):
+            x = body(x, i)
         return common.norm(x, self.final_norm, self.cfg.norm_eps)
 
     @torch.no_grad()

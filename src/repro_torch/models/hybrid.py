@@ -46,35 +46,60 @@ class Hybrid(torch.nn.Module):
         h = common.norm(x, blk.ln2, cfg.norm_eps)
         return x + common.mlp_apply(blk.mlp, h, cfg.gated_mlp)
 
+    def _rope(self, x):
+        a = self.cfg.attn
+        return common.rope_angles(torch.arange(x.shape[1], device=x.device),
+                                  a.head_dim, a.rope_theta)
+
+    def _ssm_layer(self, i: int, x, ex):
+        lyr = self.layers[i]
+        h = common.norm(x, lyr.ln, self.cfg.norm_eps)
+        return x + ssm.ssm_train(lyr.ssm, h, self.cfg, ex)
+
+    def _shared_block(self, x, ex, rope):
+        """The shared block over x -> (x after it, its (k, v))."""
+        cfg = self.cfg
+        h = common.norm(x, self.shared.ln1, cfg.norm_eps)
+        att, kv = attention.attn_train(
+            self.shared.attn, h, cfg.attn, window=None,
+            norm_eps=cfg.norm_eps, rope=rope, ex=ex)
+        return self._shared_mlp(x + att), kv
+
     def _layers(self, x, ex):
         """Every SSM layer over the full sequence x (B, S, D), each
         followed by the shared block where the schedule applies it, as a
         generator of (application index or None, x after them, the
         block's (k, v) (B, Hkv, S, hd) or None)."""
-        cfg, a = self.cfg, self.cfg.attn
-        rope = common.rope_angles(torch.arange(x.shape[1], device=x.device),
-                                  a.head_dim, a.rope_theta)
+        rope = self._rope(x)
         for i, app in self._schedule():
-            lyr = self.layers[i]
-            h = common.norm(x, lyr.ln, cfg.norm_eps)
-            x = x + ssm.ssm_train(lyr.ssm, h, cfg, ex)
+            x = self._ssm_layer(i, x, ex)
             kv = None
             if app is not None:
-                h = common.norm(x, self.shared.ln1, cfg.norm_eps)
-                att, kv = attention.attn_train(
-                    self.shared.attn, h, a, window=None,
-                    norm_eps=cfg.norm_eps, rope=rope, ex=ex)
-                x = self._shared_mlp(x + att)
+                x, kv = self._shared_block(x, ex, rope)
             yield app, x, kv
+
+    def _period(self, x, app: int, ex, rope):
+        """Application ``app``'s period: its ``hybrid_period`` SSM layers,
+        then the shared block -> x (the reference's scan body)."""
+        p = self.cfg.hybrid_period
+        for i in range(app * p, (app + 1) * p):
+            x = self._ssm_layer(i, x, ex)
+        return self._shared_block(x, ex, rope)[0]
 
     def hidden(self, tokens, ex):
         """The full-sequence forward without a cache (the reference's
         ``hybrid_hidden``): tokens (B, S) -> final-normed hidden (B, S,
         D).  The shared block's parameters take gradient from every
-        application."""
+        application.  Each whole period runs under ``ex.wrap_remat``, as
+        the reference's scan body; the leftover layers run without it."""
         x = self.embed[tokens].to(ex.compute_dtype)
-        for _, x, _ in self._layers(x, ex):
-            pass
+        rope = self._rope(x)
+        body = ex.wrap_remat(self._period)
+        n_apps = n_shared_applications(self.cfg)
+        for app in range(n_apps):
+            x = body(x, app, ex, rope)
+        for i in range(n_apps * self.cfg.hybrid_period, self.cfg.n_layers):
+            x = self._ssm_layer(i, x, ex)
         return common.norm(x, self.final_norm, self.cfg.norm_eps)
 
     @torch.no_grad()

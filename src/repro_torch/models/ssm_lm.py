@@ -29,13 +29,19 @@ class SSMLM(torch.nn.Module):
     def hidden(self, tokens, ex):
         """The full-sequence forward without a state (the reference's
         ``ssm_lm_hidden``): tokens (B, S) -> final-normed hidden (B, S,
-        D)."""
+        D).  Each layer runs under ``ex.wrap_remat``, the reference's
+        scan body."""
         cfg = self.cfg
         x = self.embed[tokens].to(ex.compute_dtype)
-        for lyr in self.layers:
-            h = common.norm(x, lyr.ln, cfg.norm_eps)
-            x = x + ssm.ssm_train(lyr.ssm, h, cfg, ex)
+        body = ex.wrap_remat(self._layer)
+        for i in range(len(self.layers)):
+            x = body(x, i, ex)
         return common.norm(x, self.final_norm, cfg.norm_eps)
+
+    def _layer(self, x, i: int, ex):
+        lyr = self.layers[i]
+        h = common.norm(x, lyr.ln, self.cfg.norm_eps)
+        return x + ssm.ssm_train(lyr.ssm, h, self.cfg, ex)
 
     @torch.no_grad()
     def prefill(self, tokens, ex, cache=None):

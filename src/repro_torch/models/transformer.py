@@ -83,33 +83,49 @@ class Transformer(torch.nn.Module):
         return torch.cat([prefix_embeds.to(ex.compute_dtype),
                           x[:, shape[1]:]], dim=1)
 
-    def _layers(self, x, ex, with_aux: bool = False):
-        """Every layer over the full sequence x (B, S, D), as a generator
-        of (layer index, x after it, its (k, v) (B, Hkv, S, hd), its aux
-        loss: ``Block.ffn``'s)."""
-        cfg, a = self.cfg, self.cfg.attn
-        rope = common.rope_angles(torch.arange(x.shape[1], device=x.device),
+    def _rope(self, x):
+        a = self.cfg.attn
+        return common.rope_angles(torch.arange(x.shape[1], device=x.device),
                                   a.head_dim, a.rope_theta)
-        for i, blk in enumerate(self.layers):
-            h = common.norm(x, blk.ln1, cfg.norm_eps)
-            att, kv = attention.attn_train(
-                blk.attn, h, a, window=attention.layer_window(
-                    a, self.is_global(i)),
-                norm_eps=cfg.norm_eps, rope=rope, ex=ex)
-            x = x + att
-            h = common.norm(x, blk.ln2, cfg.norm_eps)
-            y, aux = blk.ffn(h, cfg, with_aux, ex)
-            x = x + y
-            yield i, x, kv, aux
+
+    def _block(self, i: int, x, ex, rope, with_aux: bool):
+        """Layer i over the full sequence x (B, S, D) (the reference's
+        scan body) -> (x after it, its (k, v) (B, Hkv, S, hd), its aux
+        loss: ``Block.ffn``'s)."""
+        cfg, a, blk = self.cfg, self.cfg.attn, self.layers[i]
+        h = common.norm(x, blk.ln1, cfg.norm_eps)
+        att, kv = attention.attn_train(
+            blk.attn, h, a, window=attention.layer_window(
+                a, self.is_global(i)),
+            norm_eps=cfg.norm_eps, rope=rope, ex=ex)
+        x = x + att
+        h = common.norm(x, blk.ln2, cfg.norm_eps)
+        y, aux = blk.ffn(h, cfg, with_aux, ex)
+        return x + y, kv, aux
+
+    def _layers(self, x, ex):
+        """Every layer over the full sequence x (B, S, D), as a generator
+        of (layer index, x after it, its (k, v))."""
+        rope = self._rope(x)
+        for i in range(len(self.layers)):
+            x, kv, _ = self._block(i, x, ex, rope, False)
+            yield i, x, kv
 
     def hidden(self, tokens, ex, prefix_embeds=None):
         """The full-sequence forward without a cache (the reference's
         ``lm_hidden``): tokens (B, S) -> (final-normed hidden (B, S, D),
         aux loss): the MoE routers' aux losses summed over the layers, 0.0
-        without experts."""
+        without experts.  Each layer runs under ``ex.wrap_remat``, the
+        reference's non-period scan body; the port has no
+        ``static_layer_pattern``, so no period body.  Only x and the aux
+        loss leave the body: no layer's K/V is kept."""
         x = self._embed(tokens, ex, prefix_embeds)
+        rope = self._rope(x)
+        body = ex.wrap_remat(
+            lambda x, i: self._block(i, x, ex, rope, True)[::2])
         total = 0.0
-        for _, x, _, aux in self._layers(x, ex, with_aux=True):
+        for i in range(len(self.layers)):
+            x, aux = body(x, i)
             total = total + aux
         return common.norm(x, self.final_norm, self.cfg.norm_eps), total
 
@@ -131,7 +147,7 @@ class Transformer(torch.nn.Module):
             cache = init_cache(cfg, b, s, ex.compute_dtype, tokens.device)
         clen = cache_len(cfg, s)
         x = self._embed(tokens, ex, prefix_embeds)
-        for i, x, (k, v), _ in self._layers(x, ex):
+        for i, x, (k, v) in self._layers(x, ex):
             cache["k"][i, :, :, :clen] = k[:, :, s - clen:]
             cache["v"][i, :, :, :clen] = v[:, :, s - clen:]
         x = common.norm(x, self.final_norm, cfg.norm_eps)

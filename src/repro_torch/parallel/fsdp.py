@@ -14,6 +14,16 @@ gathered axis, so the data ranks' gradients are averaged and
 reduce-scattered, and the model ranks, which compute the dense blocks
 alike, agree.
 
+On a two-pod mesh ``("pod", "data", "model")`` every spec shards a dim
+over ``pod`` and ``data`` together (``Shard(d)`` on both), and DTensor
+plans the gradient of such a dim axis by axis: for an expert, whose
+``model`` shard stays, that plan all-reduces over one axis where one
+reduce-scatter over both would do.  So a parameter is gathered on a view
+of its mesh with ``pod`` and ``data`` as one axis, ``pod_data``
+(``_flat_view``): one all-gather and one reduce-scatter over the data
+ranks, pod-major as the specs order them.  A parameter sharded over
+neither (a norm, replicated) keeps DTensor's plan on its own mesh.
+
 Inside ``gathered_forward`` the autograd graph does not keep a gathered
 tensor: each is saved as its parameter and gathered again when the
 backward needs it, so a parameter's full copy lives from its read to
@@ -40,11 +50,37 @@ def _is_dtensor(t) -> bool:
     return isinstance(t, DTensor)
 
 
+def _flat_view(mesh):
+    """``mesh`` with its ``pod`` and ``data`` axes as one ``pod_data``
+    axis (pod-major, the order of a spec's ``("pod", "data")`` entry),
+    or ``mesh`` itself when it has not both."""
+    from torch._subclasses.fake_tensor import unset_fake_temporarily
+    from torch.distributed.device_mesh import DeviceMesh
+    names = list(mesh.mesh_dim_names)
+    if "pod" not in names or "data" not in names:
+        return mesh
+    i = names.index("pod")
+    if names.index("data") != i + 1:
+        raise ValueError(f"mesh axes {names}: 'data' must follow 'pod'")
+    # the rank table is host data, real even where the state is placed
+    # under a fake mode (the dry run)
+    with unset_fake_temporarily():
+        return DeviceMesh(mesh.device_type, mesh.mesh.flatten(i, i + 1),
+                          mesh_dim_names=tuple(names[:i] + ["pod_data"]
+                                               + names[i + 2:]))
+
+
 def _gather(p, grad: bool = True) -> torch.Tensor:
     """The full (or model-sharded) tensor of DTensor parameter ``p`` in
     its compute dtype; with ``grad``, differentiable into ``p``."""
-    target, grad_placements, dtype = p._gather
+    from torch.distributed.tensor import DTensor
+    view, plc, target, grad_placements, dtype = p._gather
     dt = p if grad else p.detach()
+    if view is not dt.device_mesh:
+        # the same local shard on the flattened view; its gradient comes
+        # back into ``p``'s placements through ``to_local``
+        dt = DTensor.from_local(dt.to_local(), view, plc, run_check=False,
+                                shape=p.shape, stride=p.stride())
     if tuple(dt.placements) != grad_placements:
         # the redistribute's backward takes the gradient from
         # ``grad_placements`` to the parameter's (a reduction)
@@ -98,29 +134,45 @@ def shard_module(model: torch.nn.Module, specs: Dict[str, tuple], mesh, *,
     read (the all-to-all's experts); every other axis is gathered."""
     from torch.distributed.tensor import (Partial, Replicate,
                                           distribute_tensor)
-    names = list(mesh.mesh_dim_names)
+    view = _flat_view(mesh)
     keep = set(model_sharded)
     for mod_name, mod in list(model.named_modules()):
         own = [(n, p) for n, p in mod._parameters.items() if p is not None]
         for pname, p in own:
             full_name = f"{mod_name}.{pname}" if mod_name else pname
             plc = placements(specs[full_name], mesh)
+            on, flat = _on_view(plc, mesh, view)
             # gathered over every axis of more than one rank (a one-rank
             # axis holds the whole dim already: no collective there)
-            gather = [mesh.size(i) > 1 and not (full_name in keep
-                                                and a == "model")
-                      for i, a in enumerate(names)]
-            target = [Replicate() if g else plc[i]
+            gather = [on.size(i) > 1 and not (full_name in keep
+                                              and a == "model")
+                      for i, a in enumerate(on.mesh_dim_names)]
+            target = [Replicate() if g else flat[i]
                       for i, g in enumerate(gather)]
-            grads = [Partial("avg") if g else plc[i]
+            grads = [Partial("avg") if g else flat[i]
                      for i, g in enumerate(gather)]
             dt = distribute_tensor(p.detach(), mesh, plc, src_data_rank=None)
             new = torch.nn.Parameter(dt, requires_grad=p.requires_grad)
-            new._gather = (tuple(target), tuple(grads), compute_dtype)
+            new._gather = (on, flat, tuple(target), tuple(grads),
+                           compute_dtype)
             mod._parameters[pname] = new
         if own:
             mod.__class__ = _sharded_class(type(mod))
     return model
+
+
+def _on_view(plc, mesh, view) -> tuple:
+    """-> (the mesh a parameter of placements ``plc`` on ``mesh`` is
+    gathered on, its placements there): ``view`` (``_flat_view(mesh)``)
+    where ``plc`` shards a dim over ``pod`` and ``data``, else ``mesh``
+    (a replicated parameter keeps DTensor's plan)."""
+    from torch.distributed.tensor import Shard
+    if view is mesh:
+        return mesh, tuple(plc)
+    i = list(mesh.mesh_dim_names).index("pod")
+    if not (isinstance(plc[i], Shard) and plc[i] == plc[i + 1]):
+        return mesh, tuple(plc)
+    return view, tuple(plc[:i + 1]) + tuple(plc[i + 2:])
 
 
 class _Saved:

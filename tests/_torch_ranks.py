@@ -176,17 +176,18 @@ def _check_placement(cfg, state, mesh) -> list:
 
 
 def train_case(rank, world, *, mesh_shape, arch, state_path, batches,
-               steps, moe_impl, lr):
-    """``steps`` steps of ``build_sharded_train`` from the state at
-    ``state_path`` on the global batches (npz) -> losses, the full
-    parameters after them (rank 0), the placement faults before and after
-    the steps, and the shapes of this rank's local shards."""
+               steps, moe_impl, lr, remat="none"):
+    """``steps`` steps of ``build_sharded_train`` (under ``remat``) from
+    the state at ``state_path`` on the global batches (npz) -> losses,
+    the full parameters after them and the last step's full gradients
+    (rank 0), the placement faults before and after the steps, and the
+    shapes of this rank's local shards."""
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.launch.train import build_sharded_train
     from repro_torch.models import ExecConfig
     mesh = _mesh(mesh_shape)
     ex = ExecConfig(ssd_chunk=8, attn_block=16, device="cpu",
-                    moe_impl=moe_impl)
+                    moe_impl=moe_impl, remat=remat)
     cfg, state = _port_state(arch, state_path, ex)
     data = np.load(batches)
     b, s = data["tokens"].shape[1:]
@@ -205,9 +206,54 @@ def train_case(rank, world, *, mesh_shape, arch, state_path, batches,
     after = _check_placement(cfg, state, mesh)
     full = {n: p.detach().full_tensor()
             for n, p in state.model.named_parameters()}
+    grads = {n: p.grad.full_tensor()
+             for n, p in state.model.named_parameters()}
     return {"losses": losses, "placement_faults": placed + after,
             "local_numel": local_numel,
-            "params": full if rank == 0 else None}
+            "params": full if rank == 0 else None,
+            "grads": grads if rank == 0 else None}
+
+
+def two_pod_grads_case(rank, world, *, arch, state_path, batches):
+    """One sharded gradient step of the all-to-all MoE on a (2, 2, 2)
+    ("pod", "data", "model") mesh, the state placed twice: its gradients
+    reduced over the flattened (pod, data) view (``fsdp._flat_view``) and
+    by DTensor's plan on the three-axis mesh -> on rank 0, the full
+    gradients of each ({"flat": ..., "axes": ...}) and the losses."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.steps import make_grad_step
+    from repro_torch.launch.train import build_sharded_train
+    from repro_torch.models import ExecConfig
+    from repro_torch.parallel import fsdp
+    from repro_torch.parallel.sharding import batch_specs, local_slice
+    mesh = _mesh((2, 2, 2))
+    ex = ExecConfig(ssd_chunk=8, attn_block=16, device="cpu",
+                    moe_impl="a2a")
+    data = np.load(batches)
+    b, s = data["tokens"].shape[1:]
+    shape = ShapeConfig("t", "train", s, b)
+    spec_for = batch_specs(get_config(arch).reduced(), shape, mesh,
+                           kind="train")
+    coords = {a: mesh.get_local_rank(a) for a in mesh.mesh_dim_names}
+    batch = {k: local_slice(torch.from_numpy(data[k][0]), spec_for(k),
+                            mesh, coords) for k in data.files}
+    out = {}
+    flat_view = fsdp._flat_view
+    for plan in ("flat", "axes"):
+        fsdp._flat_view = flat_view if plan == "flat" else (lambda m: m)
+        cfg, state = _port_state(arch, state_path, ex)
+        _, place = build_sharded_train(cfg, ex, mesh, shape)
+        state = place(state)
+        fsdp._flat_view = flat_view
+        grad_step = make_grad_step(cfg, dataclasses.replace(ex, mesh=mesh))
+        with fsdp.gathered_forward():
+            loss, _ = grad_step(state.model, batch)
+        grads = {n: p.grad.full_tensor()
+                 for n, p in state.model.named_parameters()}
+        out[plan] = {"loss": float(loss), "grads": grads}
+    return out if rank == 0 else None
 
 
 def checkpoint_case(rank, world, *, mesh_shape, tmp, arch, state_path):

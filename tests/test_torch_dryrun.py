@@ -14,13 +14,18 @@
   activation is.
 * A tiny dense model and a tiny MoE over the all-to-all on a (4, 2) mesh
   of a fake 8-rank group: the trace's all-gather and reduce-scatter bytes
-  equal the sums ``param_specs`` gives, and two runs give one record.
+  equal the sums ``param_specs`` gives, and two runs give one record;
+  on a (2, 2, 2) ("pod", "data", "model") mesh too (the experts'
+  gradients one reduce-scatter over pod and data).
+* The dry run's remat "full": each layer's kernels once more, the wire
+  bytes unchanged, the peak lower; Zamba2's leftover layers outside it.
 * The CLI writes the reference's skipped records.
 
 Every fake group is made and destroyed inside its test
 (``dryrun.fake_group``).
 """
 import ast
+import contextlib
 import json
 import os
 import pathlib
@@ -296,14 +301,17 @@ def test_fsdp_saves_gathered_parameters_only_under_fakes(monkeypatch):
 TIMES = ("lower_s", "compile_s")
 
 
-def _tiny_record(arch, kind="train"):
+def _tiny_record(arch, kind="train", mesh=(4, 2), remat="full", cfg=None):
+    """One step's record, 8 x 32 tokens, on a fake 8-rank ``mesh``: (4,
+    2) ("data", "model") or (2, 2, 2) ("pod", "data", "model")."""
     from torch.distributed.device_mesh import init_device_mesh
-    cfg = get_config(arch).reduced()
+    cfg = cfg or get_config(arch).reduced()
     shape = ShapeConfig("tiny", kind, 32, 8)
+    names = ("data", "model") if len(mesh) == 2 else ("pod", "data",
+                                                      "model")
     with dryrun.fake_group(8):
-        mesh = init_device_mesh("cpu", (4, 2),
-                                mesh_dim_names=("data", "model"))
-        return dryrun.measure(cfg, shape, mesh, "cpu")
+        return dryrun.measure(cfg, shape, init_device_mesh(
+            "cpu", mesh, mesh_dim_names=names), "cpu", remat=remat)
 
 
 @pytest.mark.parametrize("arch,moe_impl", [("tinyllama_1_1b", None),
@@ -334,6 +342,119 @@ def test_tiny_step_s_wire_bytes_are_the_spec_sums(arch, moe_impl):
     again = _tiny_record(arch)
     assert {k: v for k, v in rec.items() if k not in TIMES} == \
         {k: v for k, v in again.items() if k not in TIMES}
+
+
+@pytest.mark.parametrize("arch", ["qwen3_moe_235b_a22b", "tinyllama_1_1b"])
+def test_two_pod_gradients_reduce_scatter_as_the_specs_say(arch):
+    """On a (2, 2, 2) ("pod", "data", "model") mesh the traced
+    reduce-scatter and all-gather equal ``spec_wire_bytes`` exactly and
+    the (4, 2) mesh's: an expert's gradient (kept ``model`` shard, dim
+    over pod and data) is one reduce-scatter over the four data ranks,
+    not a reduce-scatter over one axis and an all-reduce over the other
+    (183040 B of reduce-scatter and 52795 of all-reduce before); the
+    all-reduce stays within 1.5x the (4, 2) mesh's."""
+    one = _tiny_record(arch)
+    two = _tiny_record(arch, mesh=(2, 2, 2))
+    spec = two["spec_wire_bytes"]
+    assert spec == one["spec_wire_bytes"]
+    for kind in ("all-gather", "reduce-scatter"):
+        assert two["coll_breakdown"][kind] == spec[kind] == \
+            one["coll_breakdown"][kind]
+    assert two["coll_breakdown"]["all-reduce"] <= \
+        1.5 * one["coll_breakdown"]["all-reduce"]
+
+
+# the kernel calls "full" adds to a step: each layer's forward once more
+# (2 layers; Qwen3-MoE's norms are ln1, ln2 and the q and k norms, its
+# experts 3 gmm calls; the gmm's dw is the backward's, not recomputed)
+RECOMPUTED = {"tinyllama_1_1b": {"flash_attention_fwd": 2, "rmsnorm": 4},
+              "qwen3_moe_235b_a22b": {"flash_attention_fwd": 2,
+                                      "rmsnorm": 8, "moe_gmm": 6,
+                                      "moe_gmm_dw": 0}}
+
+
+@pytest.mark.parametrize("arch", list(RECOMPUTED))
+def test_full_remat_recomputes_each_layer_once(arch):
+    """Under "full" (the dry run's default) each layer's kernels run once
+    more, the all-gather and reduce-scatter still equal the spec sums
+    (the second gather of a layer's parameter is its recompute's), the
+    all-to-all's forward dispatch runs again, the FLOPs rise and the
+    peak falls below "none"'s."""
+    none = _tiny_record(arch, remat="none")
+    full = _tiny_record(arch)
+    assert (none["remat"], full["remat"]) == ("none", "full")
+    assert {k: n - none["kernel_calls"][k]
+            for k, n in full["kernel_calls"].items()} == RECOMPUTED[arch]
+    for kind in ("all-gather", "reduce-scatter"):
+        assert full["coll_breakdown"][kind] == none["coll_breakdown"][kind] \
+            == full["spec_wire_bytes"][kind]
+    if "moe_gmm" in full["kernel_calls"]:
+        assert full["coll_breakdown"]["all-to-all"] > \
+            none["coll_breakdown"]["all-to-all"]
+    assert full["hlo_flops_per_device"] > none["hlo_flops_per_device"]
+    assert full["mem_peak_bytes"] < none["mem_peak_bytes"]
+    # what holds each peak: the live storages by the op that made them
+    for rec in (none, full):
+        assert sum(rec["mem_peak_by_op"].values()) == rec["mem_peak_bytes"]
+        top = [n for *_, n in rec["mem_peak_top"]]
+        assert top == sorted(top, reverse=True) and sum(top) <= \
+            rec["mem_peak_bytes"]
+
+
+def test_the_record_does_not_follow_the_cyclic_collector(monkeypatch):
+    """A step's record under remat "full" is the same whether Python's
+    cyclic collector runs every 100 ops or never inside the trace: no
+    reference cycle holds a traced tensor (a module tracker's hooks, or
+    the first checkpoint's import of torch._dynamo, would), so the live
+    storages' peak does not move with the collector's timing, which
+    differs between fake CUDA and fake CPU tensors."""
+    import gc
+
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Collecting(TorchDispatchMode):
+        ops = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Collecting.ops += 1
+            if Collecting.ops % 100 == 0:
+                gc.collect()
+            return func(*args, **(kwargs or {}))
+
+    trace = hlo.collectives_from_trace
+
+    def collecting_trace():
+        @contextlib.contextmanager
+        def both():
+            with trace() as mode, Collecting():
+                yield mode
+        return both()
+    monkeypatch.setattr(hlo, "collectives_from_trace", collecting_trace)
+    often = _tiny_record("tinyllama_1_1b")
+    monkeypatch.setattr(hlo, "collectives_from_trace", trace)
+    gc.disable()
+    try:
+        never = _tiny_record("tinyllama_1_1b")
+    finally:
+        gc.enable()
+    assert Collecting.ops > 1000
+    assert {k: v for k, v in often.items() if k not in TIMES} == \
+        {k: v for k, v in never.items() if k not in TIMES}
+
+
+def test_zamba2_s_leftover_layers_are_not_recomputed():
+    """Zamba2 at 5 layers, period 2: two periods (2 SSM layers and the
+    shared block each) run under remat, the fifth layer without it, so
+    "full" adds 4 SSD scans (not 5) and 2 flash calls."""
+    import dataclasses
+    cfg = dataclasses.replace(get_config("zamba2_7b").reduced(), n_layers=5)
+    assert (cfg.hybrid_period, cfg.n_layers % cfg.hybrid_period) == (2, 1)
+    none = _tiny_record("zamba2_7b", remat="none", cfg=cfg)
+    full = _tiny_record("zamba2_7b", cfg=cfg)
+    assert none["kernel_calls"]["ssd_scan"] == 5
+    assert full["kernel_calls"]["ssd_scan"] == 5 + 4
+    assert full["kernel_calls"]["flash_attention_fwd"] == \
+        none["kernel_calls"]["flash_attention_fwd"] + 2
 
 
 @pytest.mark.parametrize("arch,kind", [("zamba2_7b", "train"),

@@ -15,12 +15,17 @@ a2a at (2, 2), batch 8 x 16, 3 steps at base lr 5e-3, float32 on both
 sides with sums in other orders: each loss within 1e-5 relative, every
 parameter within 1e-5 relative L2 (``REL_L2``).  Each rank's local shard
 of every parameter, m and v is exactly its spec's slice of the full
-tensor, before and after the steps.  A crash-restore at (2, 1) through
+tensor, before and after the steps.  Under ``remat="full"`` the (1, 2)
+step's gradients are the unsharded step's bit for bit, and the a2a's
+steps the "none" ones'.  On a (2, 2, 2) ("pod", "data", "model") mesh
+the experts' gradients reduced over the flattened (pod, data) group
+equal DTensor's plan over the two axes.  A crash-restore at (2, 1) through
 ``launch.train.main`` is bit for bit; a checkpoint of a sharded state is
 copied to the host by rank 0 alone and restores every rank's shards
 exactly.  Every multi-process case joins its
 ranks against a deadline (``tests/_torch_ranks.py``).
 """
+import dataclasses
 import json
 import os
 import subprocess
@@ -34,7 +39,8 @@ import pytest
 import torch
 
 from _torch_ranks import (checkpoint_case, freed_case, resume_case,
-                          run_ranks, train_case, wait_case)
+                          run_ranks, train_case, two_pod_grads_case,
+                          wait_case)
 from repro.configs import get_config as jax_get_config
 from repro.launch.steps import init_train_state as jax_init_train_state
 from repro.launch.steps import make_train_step as jax_make_train_step
@@ -42,7 +48,7 @@ from repro.models.common import ExecConfig as JaxExecConfig
 from repro_torch.configs import get_config
 from repro_torch.convert import params_from_jax
 from repro_torch.launch.steps import (TrainState, init_train_state,
-                                      make_train_step)
+                                      make_grad_step, make_train_step)
 from repro_torch.models import ExecConfig
 from repro_torch.optim import adamw_init
 
@@ -150,13 +156,14 @@ def _reference_a2a(arch, mesh, batches, out):
     return losses, params_from_jax(tree, get_config(arch).reduced())
 
 
-def _port_unsharded(arch):
+def _port_unsharded(arch, remat="none"):
     cfg = get_config(arch).reduced()
-    state = init_train_state(cfg, EX, 0)
+    ex = dataclasses.replace(EX, remat=remat)
+    state = init_train_state(cfg, ex, 0)
     state.model.load_state_dict(_initial(arch))
     state = TrainState(model=state.model,
                        opt=adamw_init(dict(state.model.named_parameters())))
-    step = make_train_step(cfg, EX, **LR)
+    step = make_train_step(cfg, ex, **LR)
     batches = _batches(arch)
     losses = []
     for i in range(STEPS):
@@ -173,14 +180,14 @@ def _rel_l2(got, want):
                  / max(float(torch.linalg.norm(want)), 1e-30))
 
 
-def _sharded(arch, mesh, tmp_path, moe_impl):
+def _sharded(arch, mesh, tmp_path, moe_impl, remat="none"):
     torch.save(_initial(arch), tmp_path / "state.pt")
     np.savez(tmp_path / "batches.npz", **_batches(arch))
     results = run_ranks(train_case, int(np.prod(mesh)), tmp_path,
                         mesh_shape=mesh, arch=arch,
                         state_path=str(tmp_path / "state.pt"),
                         batches=str(tmp_path / "batches.npz"), steps=STEPS,
-                        moe_impl=moe_impl, lr=LR)
+                        moe_impl=moe_impl, lr=LR, remat=remat)
     for r in results:
         assert r["placement_faults"] == []
         assert r["losses"] == results[0]["losses"]
@@ -218,6 +225,69 @@ def test_sharded_a2a_moe_step_matches_reference(tmp_path):
     want = _reference_a2a(arch, mesh, tmp_path / "batches.npz",
                           tmp_path / "ref.npz")
     _compare(losses, params, *want, "reference unsharded, a2a")
+
+
+def test_sharded_full_remat_is_bit_for_bit_the_unsharded_one(tmp_path):
+    """Under ``remat="full"`` on a (1, 2) mesh (the model ranks compute
+    the whole batch alike, and the average of two equal gradients is
+    exact) the sharded step's loss and every gradient are the unsharded
+    step's bit for bit: the recompute's gathers hand the layer bodies the
+    same parameters as their forward.  (The clipping norm sums the
+    shards' squares in another order, so the updates differ in the last
+    bits.)"""
+    arch = "tinyllama-1.1b"
+    torch.save(_initial(arch), tmp_path / "state.pt")
+    np.savez(tmp_path / "batches.npz", **_batches(arch))
+    got = run_ranks(train_case, 2, tmp_path, mesh_shape=(1, 2), arch=arch,
+                    state_path=str(tmp_path / "state.pt"),
+                    batches=str(tmp_path / "batches.npz"), steps=1,
+                    moe_impl="dense", lr=LR, remat="full")[0]
+    cfg = get_config(arch).reduced()
+    ex = dataclasses.replace(EX, remat="full")
+    state = init_train_state(cfg, ex, 0)
+    state.model.load_state_dict(_initial(arch))
+    batch = {k: torch.from_numpy(v[0]) for k, v in _batches(arch).items()}
+    loss, _ = make_grad_step(cfg, ex)(state.model, batch)
+    assert got["losses"] == [float(loss)]
+    want = dict(state.model.named_parameters())
+    assert set(got["grads"]) == set(want)
+    for name, g in got["grads"].items():
+        assert torch.equal(g, want[name].grad), name
+
+
+def test_sharded_a2a_moe_under_full_remat_is_the_plain_step(tmp_path):
+    """The all-to-all MoE on a (2, 2) mesh under ``remat="full"``: the
+    recompute runs the dispatch's all-to-alls and the experts' gmm again
+    in the backward, on every rank in the same order; the losses and
+    parameters are the "none" steps' bit for bit."""
+    arch, mesh = "mixtral-8x7b", (2, 2)
+    for d in ("none", "full"):
+        (tmp_path / d).mkdir()
+    losses, params = _sharded(arch, mesh, tmp_path / "none", "a2a")
+    r_losses, r_params = _sharded(arch, mesh, tmp_path / "full", "a2a",
+                                  "full")
+    assert r_losses == losses
+    for name, p in params.items():
+        assert torch.equal(r_params[name], p), name
+
+
+def test_two_pod_expert_gradients_equal_dtensor_s_plan(tmp_path):
+    """On a (2, 2, 2) ("pod", "data", "model") mesh the all-to-all MoE's
+    gradients reduced over the flattened (pod, data) view, one
+    reduce-scatter a parameter, are those of DTensor's plan axis by axis
+    (a reduce-scatter and an all-reduce for an expert), within the
+    rounding of four float32 terms summed in another order."""
+    arch = "qwen3-moe-235b-a22b"
+    torch.save(_initial(arch), tmp_path / "state.pt")
+    np.savez(tmp_path / "batches.npz", **_batches(arch))
+    got = run_ranks(two_pod_grads_case, 8, tmp_path, arch=arch,
+                    state_path=str(tmp_path / "state.pt"),
+                    batches=str(tmp_path / "batches.npz"))[0]
+    flat, axes = got["flat"], got["axes"]
+    assert flat["loss"] == axes["loss"]
+    assert set(flat["grads"]) == set(axes["grads"])
+    for name, g in flat["grads"].items():
+        assert _rel_l2(g, axes["grads"][name]) <= 1e-6, name
 
 
 def test_dense_moe_over_data_ranks_is_refused(tmp_path):
