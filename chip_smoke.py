@@ -20,6 +20,17 @@ Phases, in order; any failure raises and exits non-zero:
    also with ids outside [0, E), the wavefront with key indices outside
    [0, U); the SSD's final state of every case against the plain
    version's, with its launches and workspace);
+2b. lint - ``repro_torch.analysis.run_lint`` over the tree, as ``python -m
+   repro_torch.cli lint`` runs it: baseline-exact against
+   ``chiplint_torch_baseline.json``, the findings by rule printed; then
+   the torch-hygiene rule's verdicts against the card: each registered
+   entry point is linted alone, and the ones with a finding on the card's
+   path (the gmm's backward: its dw's ``.tolist()``) must raise under
+   ``torch.cuda.set_sync_debug_mode("error")``, every other must run
+   under it (warmed up first, inputs already on the card): the cost terms
+   ``_terms_core`` on the scan's staged batch, the wavefront,
+   ``decode_attention``, and the forward and backward of rmsnorm, the
+   SSD, the gmm (forward) and flash at small shapes;
 3. six serving paths, each with seeded random weights at full width,
    bf16: TinyLlama-1.1B (22 layers; flash + rmsnorm), Zamba2-7B (81 Mamba2
    layers + 13 applications of the shared attention block; ssd_scan +
@@ -1314,6 +1325,24 @@ def phase_study():
     return launches
 
 
+def scan_cell():
+    """The BENCH_dse.json TinyLlama cell (3,072 design points, 36 MCM
+    variants, OI) -> (workload, strategy batch, each row's MCM index,
+    the MCMs)."""
+    import numpy as np
+
+    from repro_torch.api import Scenario
+    from repro_torch.dse.space import StrategyBatch
+    sc = Scenario(model="tinyllama_1_1b", total_tflops=4e6, seq_len=4096,
+                  global_batch=512, fabrics=("oi",))
+    w, space = sc.build_workload(), sc.design_space()
+    cells = list(space.batches())
+    batch = StrategyBatch.concat([g for _, _, g in cells])
+    local = np.concatenate([np.full(len(g), i, np.int64)
+                            for i, (_, _, g) in enumerate(cells)])
+    return w, batch, local, [m for m, _, _ in cells]
+
+
 def phase_scan():
     """``batched_simulate`` on the BENCH_dse.json TinyLlama cell (3,072
     design points, 36 MCM variants, OI), its strategy batch tiled x1 to
@@ -1322,19 +1351,11 @@ def phase_scan():
     and card vs CPU bit for bit."""
     import numpy as np
 
-    from repro_torch.api import Scenario
     from repro_torch.dse import batched_sim as bs
     from repro_torch.dse.space import StrategyBatch
     from repro_torch.obs.trace import tracing
 
-    sc = Scenario(model="tinyllama_1_1b", total_tflops=4e6, seq_len=4096,
-                  global_batch=512, fabrics=("oi",))
-    w, space = sc.build_workload(), sc.design_space()
-    cells = list(space.batches())
-    batch = StrategyBatch.concat([g for _, _, g in cells])
-    local = np.concatenate([np.full(len(g), i, np.int64)
-                            for i, (_, _, g) in enumerate(cells)])
-    mcms = [m for m, _, _ in cells]
+    w, batch, local, mcms = scan_cell()
     sizes = []
     for tile in SCAN_TILES:
         tb = StrategyBatch.concat([batch] * tile)
@@ -3501,6 +3522,164 @@ def phase_kernels():
             "moe_gmm": phase_gmm(gen), "wavefront": phase_wavefront()}
 
 
+# 2b. lint: the findings the card's entry points may keep, because the
+# code is CPU-only: the gmm's plain version (ops sends a CUDA tensor to
+# the kernel) and the key check of wavefront's CPU branch
+LINT_CPU_ONLY = (
+    "torch-hygiene::src/repro_torch/kernels/moe_gmm.py::moe_gmm_plain::"
+    "host-sync: `.tolist()` on tensor data (block_group_ids) copies it to "
+    "the host and waits for the card",
+    "torch-hygiene::src/repro_torch/kernels/wavefront.py::wavefront::"
+    "host-sync: `int()` of tensor data (key_rows) copies it to the host and "
+    "waits for the card",
+)
+# the entries whose card path syncs (the gmm's dw: ROADMAP Queue B item 3)
+LINT_SYNC_ENTRIES = ("_MoEGMM.backward",)
+# grad-phase op, shape (as GRAD_CASES), its autograd Function in ops
+LINT_OPS = [("rmsnorm", (256, 2048), "_RMSNorm"),
+            ("ssd", (1, 256, 8, 64, 1, 128, 128), "_SSD"),
+            ("gmm", (4, 128, 256, 256, 128), "_MoEGMM"),
+            ("flash", (1, 8, 2, 256, 256, 64, True), "_FlashAttention")]
+
+
+def _syncs(fn) -> str:
+    """'' when ``fn()`` runs under ``torch.cuda.set_sync_debug_mode(
+    "error")``, else the error of the synchronizing call it made; the
+    earlier mode is restored whatever ``fn`` does."""
+    torch.cuda.synchronize()
+    before = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fn()
+    except RuntimeError as e:
+        if "synchroniz" not in str(e):
+            raise
+        return str(e).splitlines()[0]
+    finally:
+        torch.cuda.set_sync_debug_mode(before)
+        torch.cuda.synchronize()
+    return ""
+
+
+def _staged_terms():
+    """The cost terms' inputs as ``batched_simulate`` stages them on the
+    card (the scan phase's cell, 3,072 points) -> a call of
+    ``_terms_core`` on them."""
+    from repro_torch.dse import batched_sim as bs
+    w, batch, local, mcms = scan_cell()
+    staged, core = [], bs._terms_core
+
+    def capture(*args):
+        staged.append(args)
+        return core(*args)
+    bs._terms_core = capture
+    try:
+        bs.batched_simulate(w, batch, bs.MCMBatch.from_mcms(mcms, local),
+                            fabric="oi", hw=mcms[0].hw, device="cuda")
+    finally:
+        bs._terms_core = core
+    (t, w_scalars, fabric, hw), = staged
+    check(all(v.is_cuda for v in t.values()), "terms staged on the card")
+    return lambda: core(t, w_scalars, fabric, hw)
+
+
+def phase_lint():
+    """chiplint over the port's tree (``repro_torch.analysis``, as ``cli
+    lint`` runs it): baseline-exact, the findings by rule; then the
+    torch-hygiene rule's verdicts held against the card.  Each registered
+    entry point is linted alone; the ones whose findings lie on the card's
+    path (``LINT_SYNC_ENTRIES``; ``LINT_CPU_ONLY`` lie off it) must make
+    the host wait, every other must not: each runs once to warm up
+    (kernels built), then under ``torch.cuda.set_sync_debug_mode("error")``
+    with its inputs already on the card, the forward of a backward case
+    outside the mode."""
+    from collections import Counter
+
+    import numpy as np
+
+    from repro_torch.analysis import (DEFAULT_CONFIG, diff_baseline,
+                                      load_baseline, run_lint)
+    from repro_torch.analysis.astutil import ModuleCache
+    from repro_torch.analysis.findings import DEFAULT_BASELINE
+    from repro_torch.analysis.torch_hygiene import check_torch_hygiene
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.wavefront import wavefront
+
+    t0 = time.perf_counter()
+    report = run_lint(ROOT, DEFAULT_CONFIG)
+    new, stale = diff_baseline(report.findings,
+                               load_baseline(ROOT / DEFAULT_BASELINE))
+    log("lint", {"files": report.n_files,
+                 "findings_by_rule": dict(Counter(
+                     f.rule for f in report.findings)),
+                 "new": len(new), "stale": len(stale),
+                 "suppressed": report.n_suppressed,
+                 "lint_s": round(time.perf_counter() - t0, 3)})
+    check(not new and not stale,
+          f"the tree is baseline-exact ({DEFAULT_BASELINE}): "
+          f"{[f.render() for f in new]} {stale}")
+    check(report.n_files > 80, f"lint scanned {report.n_files} files")
+
+    cache = ModuleCache(ROOT)
+    verdict = {}
+    for entry in DEFAULT_CONFIG.torch_entries:
+        on_card = [f for f in check_torch_hygiene(cache, (entry,))
+                   if f.fingerprint not in LINT_CPU_ONLY]
+        verdict[entry.qualname] = [f"{f.path}:{f.line}" for f in on_card]
+    log("lint", {"static_syncs_by_entry": verdict})
+    check(sorted(q for q, v in verdict.items() if v)
+          == sorted(LINT_SYNC_ENTRIES),
+          f"entries with syncs on the card's path: {verdict}")
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    runs = {}        # entry -> the call that runs it, warmed up
+    runs["_terms_core"] = _staged_terms()
+    tabs, key_rows, rows = wavefront_inputs(
+        [("gpipe", 16, 1, 64), ("1f1b", 8, 1, 32), ("interleaved", 2, 2, 8)],
+        1024, np.random.RandomState(SEED))
+    wf = [t.cuda() for t in (*tabs, key_rows, rows)]
+    runs["wavefront"] = lambda: wavefront(*wf)
+    q = torch.randn(2, 8, 1, 64, device="cuda", generator=gen).to(BF16)
+    kc, vc = (torch.randn(2, 2, 256, 64, device="cuda",
+                          generator=gen).to(BF16) for _ in range(2))
+    runs["decode_attention"] = lambda: ops.decode_attention(
+        q, kc, vc, 200, window=128)
+    backward = {}    # backward entry -> (the op, its inputs, output grads)
+    for op, shape, function in LINT_OPS:
+        fn, _, ins, douts, _, _ = _grad_case(op, shape, BF16, gen)
+        runs[f"{function}.forward"] = (lambda fn=fn, ins=ins: fn(*ins))
+        backward[f"{function}.backward"] = (fn, ins, douts)
+    for entry in verdict:
+        check(entry in runs or entry in backward,
+              f"chip_smoke runs the registered entry {entry}")
+    for fn in runs.values():
+        fn()
+    for fn, ins, douts in backward.values():
+        _fwd_bwd(fn, ins, douts)
+    torch.cuda.synchronize()
+
+    got = {}
+    for entry, fn in runs.items():
+        got[entry] = _syncs(fn)
+    for entry, (fn, ins, douts) in backward.items():
+        out = fn(*ins)                      # the forward, outside the mode
+        outs = out if isinstance(out, tuple) else (out,)
+        if entry == "_MoEGMM.backward":     # as a training step calls it
+            got[entry] = _syncs(out.sum().backward)
+        else:
+            got[entry] = _syncs(lambda: torch.autograd.grad(
+                outs, ins, douts[:len(outs)]))
+    log("lint", {"card_syncs_by_entry": got,
+                 "phase_s": round(time.perf_counter() - t0, 3)})
+    for entry, err in got.items():
+        want = entry in LINT_SYNC_ENTRIES
+        check(bool(err) == want,
+              f"{entry} {'syncs' if err else 'runs without a sync'} under "
+              f"set_sync_debug_mode('error') on the card, while the "
+              f"torch-hygiene rule says it "
+              f"{'syncs' if want else 'does not'}: {err or verdict[entry]}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3514,6 +3693,9 @@ def main() -> int:
         f"{torch.cuda.device_count()}")
     phase_build()
     records = phase_kernels()
+    t_new = time.perf_counter()
+    phase_lint()
+    log("done", f"lint phase in {time.perf_counter() - t_new:.1f} s")
     by_path = {}
     for arch, serve_depth, serve_prompt, check_depth, prompt in PATHS:
         launches, served = phase_serve(arch, serve_depth, serve_prompt)

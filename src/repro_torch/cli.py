@@ -46,14 +46,24 @@ as instant markers).
     PYTHONPATH=src python -m repro_torch.cli timeline \
         scenarios/tinyllama_quick.json --schedule interleaved --device cpu
 
-The reference CLI's ``bench`` and ``lint`` subcommands are not ported.
+The ``lint`` subcommand runs chiplint over the port's tree
+(``repro_torch.analysis``: parity drift between the mirrored engines,
+host syncs on the card's call graph, unit mismatches, determinism and
+the metric schema) against ``chiplint_torch_baseline.json``; it reads
+source files only and needs no card.
+
+    PYTHONPATH=src python -m repro_torch.cli lint
+
+The reference CLI's ``bench`` subcommand is not ported.
 
 Exit codes: 0 ok; 2 bad arguments; 3 when a study found NO feasible
 design point (every sweep cell infeasible); ``validate``: 1 when any
 asserted point exceeds the fidelity tolerance; ``calibrate``: 1, and
 nothing written, when on the card a fitted peak is over the card's or
 a fit's half is at the top of its search (``calib.card_fit_faults``),
-and with ``--check`` when any gated constant drifted beyond tolerance.
+and with ``--check`` when any gated constant drifted beyond tolerance;
+``lint``: 1 on findings the baseline does not cover or on stale baseline
+entries.
 """
 from __future__ import annotations
 
@@ -535,6 +545,88 @@ def main_calibrate(argv: List[str]) -> int:
     return EXIT_OK
 
 
+# ---------------------------------------------------------------------------
+# `lint` subcommand — chiplint, the AST invariant analyzer
+# ---------------------------------------------------------------------------
+def build_lint_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(
+        prog="python -m repro_torch.cli lint",
+        description="chiplint: AST-based invariant analysis "
+                    "(repro_torch.analysis) — parity drift between the "
+                    "scalar/batched/event-DAG engines, host syncs on the "
+                    "card's call graph (torch-hygiene), physical-unit "
+                    "mismatches, determinism and metric-schema "
+                    "violations.  Exit 1 on findings not covered by the "
+                    "baseline, or on stale baseline entries.")
+    ap.add_argument("--root", default=".",
+                    help="repository root to analyze (default: cwd)")
+    ap.add_argument("--baseline", default=None,
+                    help="grandfathered-findings file (default: "
+                         "<root>/chiplint_torch_baseline.json; absent "
+                         "file = empty baseline)")
+    ap.add_argument("--update-baseline", action="store_true",
+                    help="rewrite the baseline to the current findings, "
+                         "keeping the reasons of entries that stay, and "
+                         "exit 0")
+    ap.add_argument("--json", default=None, metavar="REPORT_JSON",
+                    help="also write the machine-readable findings "
+                         "report")
+    return ap
+
+
+def main_lint(argv: List[str]) -> int:
+    import json
+
+    from repro_torch.analysis import (DEFAULT_CONFIG, diff_baseline,
+                                      load_baseline, load_baseline_reasons,
+                                      run_lint, save_baseline)
+    from repro_torch.analysis.findings import DEFAULT_BASELINE, report_dict
+
+    ap = build_lint_parser()
+    args = ap.parse_args(argv)
+    root = Path(args.root)
+    if not root.is_dir():
+        ap.exit(EXIT_USAGE, f"{ap.prog}: error: no such directory: "
+                            f"{root}\n")
+    baseline_path = Path(args.baseline) if args.baseline \
+        else root / DEFAULT_BASELINE
+
+    report = run_lint(root, DEFAULT_CONFIG)
+    try:
+        baseline = load_baseline(baseline_path)
+        reasons = load_baseline_reasons(baseline_path)
+    except (ValueError, OSError) as e:
+        ap.exit(EXIT_USAGE, f"{ap.prog}: error: {e}\n")
+    if args.update_baseline:
+        p = save_baseline(baseline_path, report.findings, reasons)
+        print(f"chiplint: baselined {len(report.findings)} finding(s) "
+              f"-> {p}")
+        return EXIT_OK
+    new, stale = diff_baseline(report.findings, baseline)
+
+    if args.json:
+        out = Path(args.json)
+        out.parent.mkdir(parents=True, exist_ok=True)
+        out.write_text(json.dumps(
+            report_dict(report.findings, new, stale,
+                        report.n_suppressed, report.n_files),
+            indent=1) + "\n")
+        print(f"  wrote {out}")
+
+    for f in new:
+        print(f.render())
+    for fp in stale:
+        print(f"stale baseline entry (fix shipped? run "
+              f"--update-baseline): {fp}")
+    n_base = len(report.findings) - len(new)
+    print(f"chiplint: {report.n_files} files, "
+          f"{len(report.findings)} finding(s) "
+          f"({n_base} baselined, {len(new)} new, "
+          f"{report.n_suppressed} suppressed, "
+          f"{len(stale)} stale baseline)")
+    return EXIT_OK if not new and not stale else 1
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     argv = sys.argv[1:] if argv is None else list(argv)
     if argv and argv[0] == "validate":
@@ -543,6 +635,8 @@ def main(argv: Optional[List[str]] = None) -> int:
         return main_timeline(argv[1:])
     if argv and argv[0] == "calibrate":
         return main_calibrate(argv[1:])
+    if argv and argv[0] == "lint":
+        return main_lint(argv[1:])
     ap = build_parser()
     args = ap.parse_args(argv)
     try:

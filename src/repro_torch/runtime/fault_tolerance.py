@@ -14,8 +14,9 @@ Mechanisms:
     step that went over it raises ``TimeoutError`` (a runner would
     restart the job from the last checkpoint).  It cannot fire while a
     step still runs, so a step that hangs is not caught here.
-  * straggler mitigation — per-step wall times feed an EWMA; steps slower
-    than ``straggler_factor`` x EWMA are logged with their step id; the
+  * straggler mitigation — per-step wall times (``clock``, the wall
+    clock by default) feed an EWMA; steps slower than
+    ``straggler_factor`` x EWMA are logged with their step id; the
     synchronous-SGD semantics are unchanged.
 
 Each step's time is the device's: the loop waits for the card
@@ -61,13 +62,15 @@ def _wait_for_step(metrics: dict) -> None:
 class FaultTolerantLoop:
     def __init__(self, train_step: Callable, ckpt_mgr, pipeline,
                  checkpoint_every: int = 50, watchdog_s: float = 1800.0,
-                 straggler_factor: float = 3.0):
+                 straggler_factor: float = 3.0,
+                 clock: Callable[[], float] = time.perf_counter):
         self.train_step = train_step
         self.ckpt = ckpt_mgr
         self.pipeline = pipeline
         self.checkpoint_every = checkpoint_every
         self.watchdog = Watchdog(watchdog_s)
         self.straggler_factor = straggler_factor
+        self.clock = clock
         self.preempted = False
         self.step_times = []
         self.straggler_steps = []
@@ -111,11 +114,11 @@ class FaultTolerantLoop:
         try:
             step = start_step
             while step < n_steps and not self.preempted:
-                t0 = time.perf_counter()
+                t0 = self.clock()
                 batch = self.pipeline.batch_at(step)
                 state, metrics = self.train_step(state, batch)
                 _wait_for_step(metrics)
-                dt = time.perf_counter() - t0
+                dt = self.clock() - t0
                 self.watchdog.check()
                 self.watchdog.pet()
                 self.step_times.append(dt)

@@ -362,26 +362,57 @@ def test_preemption_finishes_the_step_and_checkpoints(tmp_path):
     assert extra == {"seed": 1, "step": 2}
 
 
-def test_straggler_steps_and_watchdog(tmp_path):
+class _StepClock:
+    """A clock that moves only while a step runs, by that step's time: the
+    loop's straggler check then reads the step times a test sets, not the
+    host's load."""
+
+    def __init__(self):
+        self.now = 0.0
+
+    def __call__(self) -> float:
+        return self.now
+
+
+def _straggler_loop(tmp_path, first_step=None):
+    """A loop whose steps take 10 ms on its clock, the fourth 500 ms;
+    ``first_step`` runs before the first step (not on the clock)."""
     cfg = _cfg("tinyllama_1_1b")
     step = make_train_step(cfg, EX)
+    clock = _StepClock()
     calls = []
 
     def slow_step(state, batch):
         calls.append(1)
-        if len(calls) == 4:
-            import time
-            time.sleep(0.5)
+        if len(calls) == 1 and first_step is not None:
+            first_step()
+        clock.now += 0.5 if len(calls) == 4 else 0.010
         return step(state, batch)
 
     loop = FaultTolerantLoop(slow_step, CheckpointManager(tmp_path),
                              DataPipeline(cfg, SHAPE, seed=1, ex=EX),
-                             checkpoint_every=100)
+                             checkpoint_every=100, clock=clock)
     loop.run(init_train_state(cfg, EX), 5)
+    return loop
+
+
+def test_straggler_steps_and_watchdog(tmp_path):
+    loop = _straggler_loop(tmp_path)
+    assert loop.step_times == pytest.approx([0.010] * 3 + [0.5, 0.010])
     assert [s for s, _, _ in loop.straggler_steps] == [3]
     loop.watchdog.deadline_s = -1.0
     with pytest.raises(TimeoutError):
         loop.watchdog.check()
+
+
+def test_slow_first_step_does_not_hide_straggler(tmp_path):
+    """A first step that is slow on the host (a warm-up, a loaded machine)
+    seeds nothing: the EWMA reads the loop's clock, so step 3 is still
+    the one straggler."""
+    import time
+    loop = _straggler_loop(tmp_path, first_step=lambda: time.sleep(0.3))
+    assert loop.step_times[0] == pytest.approx(0.010)
+    assert [s for s, _, _ in loop.straggler_steps] == [3]
 
 
 # ---------------------------------------------------------------------------
