@@ -8,8 +8,9 @@ Phases, in order; any failure raises and exits non-zero:
 1. build  - compile every CUDA kernel (the serving paths' four and the
    study's wavefront) from ``src/repro_torch/csrc`` (one nvcc per source,
    all in parallel), and report each kernel instantiation's registers,
-   spills and tensor-core instructions; the gmm's wgmma kernels must not spill and must hold
-   HGMMA, the SSD's bf16 kernels must not spill and must hold HMMA;
+   spills and tensor-core instructions; the gmm's wgmma kernels must not
+   spill and must hold HGMMA, its decode kernels and the SSD's bf16
+   kernels must not spill and must hold HMMA;
 2. kernels - hold each kernel against its plain PyTorch version on the
    card at the serving paths' shapes (the wavefront at the study's: gpipe,
    1f1b, interleaved, mixed keys up to S 16 x L 542, and a key too large
@@ -30,7 +31,8 @@ Phases, in order; any failure raises and exits non-zero:
    under it (warmed up first, inputs already on the card): the cost terms
    ``_terms_core`` on the scan's staged batch, the wavefront,
    ``decode_attention``, and the forward and backward of rmsnorm, the
-   SSD, the gmm (forward) and flash at small shapes;
+   SSD, the gmm (forward, at block_t 128 and on the decode kernel at 8)
+   and flash at small shapes;
 3. six serving paths, each with seeded random weights at full width,
    bf16: TinyLlama-1.1B (22 layers; flash + rmsnorm), Zamba2-7B (81 Mamba2
    layers + 13 applications of the shared attention block; ssd_scan +
@@ -310,16 +312,20 @@ def phase_build():
                                   _build.BUILD_DIR / f"lib{name}.so")
                for name in sources}
     log("build", reports)
-    # the gmm's wgmma kernels: on the tensor cores' wgmma path, no spill
+    # the gmm's wgmma kernels: on the tensor cores' wgmma path, no spill;
+    # its decode kernels on mma.sync, no spill
     gmm = reports["moe_gmm"]
     counts = gmm["sass"].get("tensor_core_instructions", {})
-    wgmma = sorted(k for k in gmm["ptxas"] if k.startswith("gmm_wgmma_kernel"))
-    check(len(wgmma) == 2, f"moe_gmm: two wgmma instantiations, got {wgmma}")
-    for name in wgmma:
-        check(gmm["ptxas"][name].get("spills") == NO_SPILL,
-              f"{name}: no spill ({gmm['ptxas'][name]})")
-        check(counts.get(name, {}).get("HGMMA", 0) > 0,
-              f"{name}: HGMMA in its SASS ({counts.get(name)})")
+    for prefix, n_inst, op in (("gmm_wgmma_kernel", 2, "HGMMA"),
+                               ("gmm_decode_kernel", 3, "HMMA")):
+        insts = sorted(k for k in gmm["ptxas"] if k.startswith(prefix))
+        check(len(insts) == n_inst,
+              f"moe_gmm: {n_inst} {prefix} instantiations, got {insts}")
+        for name in insts:
+            check(gmm["ptxas"][name].get("spills") == NO_SPILL,
+                  f"{name}: no spill ({gmm['ptxas'][name]})")
+            check(counts.get(name, {}).get(op, 0) > 0,
+                  f"{name}: {op} in its SASS ({counts.get(name)})")
     # the SSD's bf16 kernels: on the tensor cores (mma.sync), no spill
     ssd = reports["ssd_scan"]
     counts = ssd["sass"].get("tensor_core_instructions", {})
@@ -759,10 +765,16 @@ GMM_CASES = [
     # dtype, iterations timed.  Qwen3-MoE at batch 8 x prompt 1024: the
     # capacity is 640 rows of 128 experts; w1 and w3 are 4096 -> 1536, w2
     # 1536 -> 4096.  Decode at batch 8: 8 rows (one block) per expert.
-    # bf16 at block_t 64 and 128 runs the wgmma kernel, at 8-32 mma.sync.
+    # bf16 at block_t 64 and 128 runs the wgmma kernel, at 8-32 the decode
+    # kernel (TMA + mma.sync).
     ("qwen3_prefill", 128, 640, 4096, 1536, 128, torch.bfloat16, 10),
     ("qwen3_prefill_w2", 128, 640, 1536, 4096, 128, torch.bfloat16, 10),
     ("qwen3_decode", 128, 8, 4096, 1536, 8, torch.bfloat16, 20),
+    # decode's w2 (1536 -> 4096), and the decode kernel's other row tiles
+    # at w1: 16 and 32 rows of each expert in one block
+    ("qwen3_decode_w2", 128, 8, 1536, 4096, 8, torch.bfloat16, 20),
+    ("qwen3_decode_bt16", 128, 16, 4096, 1536, 16, torch.bfloat16, 20),
+    ("qwen3_decode_bt32", 128, 32, 4096, 1536, 32, torch.bfloat16, 20),
     # Mixtral-8x7B at batch 8 x prompt 1024: 2560 rows of 8 experts
     ("mixtral_prefill", 8, 2560, 4096, 14336, 128, torch.bfloat16, 3),
     # block_t 64: a capacity that is a multiple of 64 and not of 128
@@ -857,7 +869,8 @@ def gmm_bad_ids(gen):
                        device="cuda")
     bad = (ids < 0) | (ids >= e)
     for bt, dt in ((128, torch.bfloat16), (64, torch.bfloat16),
-                   (32, torch.bfloat16), (8, torch.float32)):
+                   (32, torch.bfloat16), (16, torch.bfloat16),
+                   (8, torch.bfloat16), (8, torch.float32)):
         x = torch.randn(ids.numel() * bt, k, device="cuda",
                         generator=gen).to(dt)
         w = (torch.randn(e, k, n, device="cuda", generator=gen)
@@ -875,8 +888,8 @@ def gmm_bad_ids(gen):
               f"gmm {kernel} block_t {bt}: the valid blocks of a call with "
               f"bad ids match the plain version")
     log("kernel", f"moe_gmm: ids {ids.tolist()} of E={e} give NaN rows at "
-        "block_t 128, 64 (wgmma), 32 (mma.sync) and 8 (FMA, fp32); the "
-        "valid blocks match the plain version")
+        "block_t 128, 64 (wgmma), 32, 16, 8 (decode) and 8 (FMA, fp32); "
+        "the valid blocks match the plain version")
 
 
 # ---------------------------------------------------------------------------
@@ -1102,8 +1115,8 @@ WAVEFRONT_CASES = [
     ("mixed", [("gpipe", 16, 1, 64), ("1f1b", 8, 1, 32),
                ("interleaved", 16, 4, 64), ("interleaved", 2, 2, 8)],
      WAVEFRONT_K),
-    # S 64 x L 1150: 0.88 MB of history and level codes, more than a
-    # block's shared memory, so both go to device-memory scratch
+    # S 64 x L 1150: 0.59 MB of history, more than a block's shared
+    # memory, so it goes to device-memory scratch (a block a record)
     ("device_memory_history", [("gpipe", 64, 1, 512)], 8),
 ]
 WAVEFRONT_TIMED = "mixed"
@@ -1773,7 +1786,7 @@ TRAIN_OUT = {"grad": 1, "m": 3, "v": 4, "param": 2}
 HAND_KERNELS = ("fa_wgmma_kernel", "fa_fwd_kernel", "rmsnorm_reg_kernel",
                 "rmsnorm_loop_kernel", "chunk_state_kernel",
                 "state_pass_kernel", "chunk_scan_kernel", "ssd_kernel",
-                "gmm_wgmma_kernel", "gmm_mma_kernel", "gmm_fma_kernel")
+                "gmm_wgmma_kernel", "gmm_decode_kernel", "gmm_fma_kernel")
 BACKWARD_NODES = {"flash_attention_bwd_plain": "_FlashAttentionBackward",
                   "rmsnorm recompute": "_RMSNormBackward",
                   "ssd recompute": "_SSDBackward",
@@ -3540,6 +3553,9 @@ LINT_OPS = [("rmsnorm", (256, 2048), "_RMSNorm"),
             ("ssd", (1, 256, 8, 64, 1, 128, 128), "_SSD"),
             ("gmm", (4, 128, 256, 256, 128), "_MoEGMM"),
             ("flash", (1, 8, 2, 256, 256, 64, True), "_FlashAttention")]
+# forwards run again at another shape (entry, op, shape): the gmm's decode
+# kernel, at block_t 8
+LINT_MORE_FORWARDS = [("_MoEGMM.forward", "gmm", (16, 8, 512, 256, 8))]
 
 
 def _syncs(fn) -> str:
@@ -3649,6 +3665,9 @@ def phase_lint():
         fn, _, ins, douts, _, _ = _grad_case(op, shape, BF16, gen)
         runs[f"{function}.forward"] = (lambda fn=fn, ins=ins: fn(*ins))
         backward[f"{function}.backward"] = (fn, ins, douts)
+    for entry, op, shape in LINT_MORE_FORWARDS:
+        fn, _, ins, _, _, _ = _grad_case(op, shape, BF16, gen)
+        runs[f"{entry} {shape}"] = (lambda fn=fn, ins=ins: fn(*ins))
     for entry in verdict:
         check(entry in runs or entry in backward,
               f"chip_smoke runs the registered entry {entry}")
@@ -3672,12 +3691,13 @@ def phase_lint():
     log("lint", {"card_syncs_by_entry": got,
                  "phase_s": round(time.perf_counter() - t0, 3)})
     for entry, err in got.items():
-        want = entry in LINT_SYNC_ENTRIES
+        name = entry.split(" ")[0]   # a forward at another shape: its entry
+        want = name in LINT_SYNC_ENTRIES
         check(bool(err) == want,
               f"{entry} {'syncs' if err else 'runs without a sync'} under "
               f"set_sync_debug_mode('error') on the card, while the "
               f"torch-hygiene rule says it "
-              f"{'syncs' if want else 'does not'}: {err or verdict[entry]}")
+              f"{'syncs' if want else 'does not'}: {err or verdict[name]}")
 
 
 def main() -> int:

@@ -121,7 +121,9 @@ __device__ __forceinline__ void bulk_wait() {
   asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// Make this thread's writes to shared memory visible to TMA.
+// Order this thread's accesses to shared memory (generic proxy) with TMA's
+// and wgmma's (async proxy): its writes before a TMA store reads them, its
+// reads before a TMA load overwrites them.
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }

@@ -16,7 +16,8 @@
 //
 // Bound: operations at the prefill shapes (Qwen3-MoE: 81,920 rows x 4096
 // x 1536, ~1 TFLOP a launch against 1.6 GB of weights), bytes at decode
-// (1,024 rows: every expert's weights are read for 8 rows each).
+// (1,024 rows: every expert's weights, 1.6 GB, are read for 8 rows each,
+// ~8 operations a byte against the card's ~295).
 //
 // Which kernel a call reaches (the wrapper, kernels/moe_gmm.py::
 // kernel_for, picks it and passes its code):
@@ -40,19 +41,24 @@
 //   blocks at a time, row blocks fastest within the group, so the blocks
 //   in flight share a few experts' weights in L2; the launch sizes the
 //   group from the number of column tiles (1: columns fastest).
-// - bfloat16, block_t 8, 16 or 32 (decode): gmm_mma_kernel, warp-level
-//   mma.sync (m16n8k16, fp32 accumulators): 128 threads, a (block_t x
-//   128) tile, four stages of 32-deep K slices brought into shared memory
-//   by cp.async (16-byte copies, zero-filled past K and N), fragments
-//   read with ldmatrix (the weight slice transposed on the way).  Rows
-//   are padded by 16 bytes so ldmatrix's eight row reads fall in distinct
-//   banks.  Decode reads every expert's weights for a few rows, so it is
-//   bound by bytes and a wgmma kernel could read no fewer.
+// - bfloat16, block_t 8, 16 or 32 (decode): gmm_decode_kernel, built for
+//   the bytes.  A persistent grid (kDecodeBlocksPerSm blocks a SM) walks
+//   the (row block, 256-column tile) items, columns fastest.  One producer
+//   thread keeps TMA loads in flight through a ring of 64-deep K stages
+//   that runs on across items: a (64 x BT) box of x and four (64 x 64)
+//   boxes of the expert's weight through the same maps as the prefill's,
+//   so each weight row arrives 512 contiguous bytes at a time, and the
+//   next item's weights stream while this item's epilogue stores.  The
+//   ring is as deep as shared memory allows (Little's law in DecTile).
+//   Eight consumer warps each own 32 columns of an item and run mma.sync
+//   m16n8k16 on the transposed product, out^T = w^T x^T: the weight tile
+//   is the 16-row operand (ldmatrix.trans from the swizzled rows) and the
+//   row block's 8-32 rows the n8 side, so no padding row is multiplied.
+//   Compute is idle at decode (~25 TFLOP/s), so mma.sync is enough.
 // - float32, any block_t: gmm_fma_kernel on the FMA pipes (a 16 x 64
 //   thread grid of register tiles), so fp32 products stay in fp32: no
-//   TF32.
-// The smaller kernels index tiles columns fastest: the blocks in flight
-// share one row block of x and the few experts whose weights they read.
+//   TF32.  It indexes tiles columns fastest: the blocks in flight share
+//   one row block of x and the few experts whose weights they read.
 #include <climits>
 
 #include "common.cuh"
@@ -62,170 +68,9 @@ namespace {
 
 constexpr int kThreads = 128;
 
-using repro::cp_async16;
-using repro::cp_async_commit;
-using repro::cp_async_wait;
-using repro::ldmatrix_x4;
-using repro::ldmatrix_x4_trans;
-using repro::mma_bf16;
 
 __device__ __forceinline__ float nan_f() {
   return __int_as_float(0x7fc00000);
-}
-
-// ---------------------------------------------------------------------------
-// bfloat16: tensor cores
-// ---------------------------------------------------------------------------
-template <int BT>
-struct MmaTile {
-  static constexpr int kBN = 128;
-  static constexpr int kBK = 32;
-  static constexpr int kStages = 4;
-  static constexpr int kBM = BT < 16 ? 16 : BT;   // rows >= BT stay zero
-  static constexpr int kWarpsM = BT >= 32 ? 2 : 1;
-  static constexpr int kWarpsN = 4 / kWarpsM;
-  static constexpr int kWM = kBM / kWarpsM;       // rows of a warp
-  static constexpr int kWN = kBN / kWarpsN;       // columns of a warp
-  static constexpr int kMT = kWM / 16;            // m16 tiles of a warp
-  static constexpr int kNT = kWN / 8;             // n8 tiles of a warp
-  static constexpr int kAStride = kBK + 8;        // bf16 elements a row
-  static constexpr int kBStride = kBN + 8;
-  static constexpr int kAStage = kBM * kAStride;
-  static constexpr int kBStage = kBK * kBStride;
-  static constexpr int kSmemBytes = kStages * (kAStage + kBStage) * 2;
-};
-
-template <int BT>
-__global__ void __launch_bounds__(kThreads)
-gmm_mma_kernel(const __nv_bfloat16* __restrict__ x,
-               const __nv_bfloat16* __restrict__ w,
-               const int* __restrict__ gids, __nv_bfloat16* __restrict__ out,
-               int k_dim, int n_dim, int n_experts, int n_tiles) {
-  using P = MmaTile<BT>;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* Bs = As + P::kStages * P::kAStage;
-
-  const int tile = blockIdx.x;
-  const long long tb = tile / n_tiles;           // row block
-  const int n0 = (tile % n_tiles) * P::kBN;
-  const long long row0 = tb * BT;
-  const int e = gids[tb];
-  const int tid = threadIdx.x;
-
-  if (e < 0 || e >= n_experts) {
-    // an id outside [0, E): NaN rows, so any check of the output sees it
-    for (int i = tid; i < BT * P::kBN; i += kThreads) {
-      const int c = n0 + i % P::kBN;
-      if (c < n_dim)
-        out[(row0 + i / P::kBN) * n_dim + c] = __float2bfloat16_rn(nan_f());
-    }
-    return;
-  }
-  const __nv_bfloat16* xb = x + row0 * k_dim;
-  const __nv_bfloat16* wb = w + static_cast<long long>(e) * k_dim * n_dim;
-
-  if constexpr (BT < 16) {   // the padding rows of every stage are zeros
-    for (int i = tid; i < P::kStages * (16 - BT) * P::kAStride;
-         i += kThreads) {
-      const int s = i / ((16 - BT) * P::kAStride);
-      const int r = i % ((16 - BT) * P::kAStride);
-      As[s * P::kAStage + BT * P::kAStride + r] = __float2bfloat16_rn(0.f);
-    }
-  }
-
-  auto load_stage = [&](int stage, int k0) {
-    __nv_bfloat16* as = As + stage * P::kAStage;
-    __nv_bfloat16* bs = Bs + stage * P::kBStage;
-    constexpr int kAVec = BT * P::kBK / 8;
-    for (int v = tid; v < kAVec; v += kThreads) {
-      const int r = v / (P::kBK / 8);
-      const int c = (v % (P::kBK / 8)) * 8;
-      const bool ok = k0 + c < k_dim;
-      cp_async16(as + r * P::kAStride + c,
-                 ok ? xb + r * static_cast<long long>(k_dim) + k0 + c : xb,
-                 ok);
-    }
-    constexpr int kBVec = P::kBK * P::kBN / 8;
-    for (int v = tid; v < kBVec; v += kThreads) {
-      const int r = v / (P::kBN / 8);
-      const int c = (v % (P::kBN / 8)) * 8;
-      const bool ok = k0 + r < k_dim && n0 + c < n_dim;
-      cp_async16(bs + r * P::kBStride + c,
-                 ok ? wb + static_cast<long long>(k0 + r) * n_dim + n0 + c
-                    : wb,
-                 ok);
-    }
-  };
-
-  const int warp = tid / 32, lane = tid % 32;
-  const int wm = warp / P::kWarpsN, wn = warp % P::kWarpsN;
-  float acc[P::kMT][P::kNT][4];
-#pragma unroll
-  for (int i = 0; i < P::kMT; ++i)
-#pragma unroll
-    for (int j = 0; j < P::kNT; ++j)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) acc[i][j][q] = 0.f;
-
-  const int nk = (k_dim + P::kBK - 1) / P::kBK;
-#pragma unroll
-  for (int s = 0; s < P::kStages - 1; ++s) {
-    if (s < nk) load_stage(s, s * P::kBK);
-    cp_async_commit();
-  }
-  for (int kt = 0; kt < nk; ++kt) {
-    cp_async_wait<P::kStages - 2>();
-    __syncthreads();   // stage kt landed; stage kt-1 is no longer read
-    const int nxt = kt + P::kStages - 1;
-    if (nxt < nk) load_stage(nxt % P::kStages, nxt * P::kBK);
-    cp_async_commit();
-
-    const __nv_bfloat16* as = As + (kt % P::kStages) * P::kAStage;
-    const __nv_bfloat16* bs = Bs + (kt % P::kStages) * P::kBStage;
-#pragma unroll
-    for (int kk = 0; kk < P::kBK; kk += 16) {
-      uint32_t a[P::kMT][4], b[P::kNT][2];
-#pragma unroll
-      for (int i = 0; i < P::kMT; ++i)
-        ldmatrix_x4(a[i], as + (wm * P::kWM + i * 16 + lane % 16) *
-                                   P::kAStride + kk + (lane / 16) * 8);
-#pragma unroll
-      for (int j = 0; j < P::kNT; j += 2) {
-        uint32_t r[4];
-        ldmatrix_x4_trans(r, bs + (kk + lane % 16) * P::kBStride +
-                                 wn * P::kWN + j * 8 + (lane / 16) * 8);
-        b[j][0] = r[0];
-        b[j][1] = r[1];
-        b[j + 1][0] = r[2];
-        b[j + 1][1] = r[3];
-      }
-#pragma unroll
-      for (int i = 0; i < P::kMT; ++i)
-#pragma unroll
-        for (int j = 0; j < P::kNT; ++j) mma_bf16(acc[i][j], a[i], b[j]);
-    }
-  }
-  cp_async_wait<0>();
-
-  // c0,c1 at (g, 2t..2t+1); c2,c3 at (g+8, 2t..2t+1); N % 8 == 0, so a
-  // pair is wholly inside N or wholly past it
-  const int g = lane / 4, t4 = lane % 4;
-#pragma unroll
-  for (int i = 0; i < P::kMT; ++i) {
-#pragma unroll
-    for (int j = 0; j < P::kNT; ++j) {
-      const int c = n0 + wn * P::kWN + j * 8 + 2 * t4;
-      if (c >= n_dim) continue;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int r = wm * P::kWM + i * 16 + g + 8 * h;
-        if (r >= BT) continue;
-        *reinterpret_cast<__nv_bfloat162*>(out + (row0 + r) * n_dim + c) =
-            __floats2bfloat162_rn(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
-      }
-    }
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -436,6 +281,205 @@ gmm_wgmma_kernel(const __grid_constant__ GmmMaps maps,
 }
 
 // ---------------------------------------------------------------------------
+// bfloat16 decode: a persistent grid fed by TMA, mma.sync consumers
+// ---------------------------------------------------------------------------
+// Column tiles of the decode kernel: 256 columns are 512 contiguous bytes
+// of each weight row (four 128-byte TMA boxes side by side).
+constexpr int kDecodeBN = 256;
+// Persistent blocks a SM: one holds the whole ring (two, each with half of
+// it, read no faster once the stages are given back behind a proxy fence;
+// launch/gmm_variants.py --decode).
+constexpr int kDecodeBlocksPerSm = 1;
+
+// An item is (row block, BN-column tile); a stage holds a 64-deep K slice
+// of the row block's x (BT x 64) and of the expert's weight (64 x BN, as
+// BN / 64 boxes of 64 x 64), both 128-byte swizzled.  Eight consumer
+// warps each own BN / 8 columns of the item and all its BT rows; one
+// producer warp issues the loads.
+template <int BT, int BN>
+struct DecTile {
+  static_assert(BT == 8 || BT == 16 || BT == 32, "decode row tiles");
+  static_assert(BN % 128 == 0, "16 columns or more a consumer warp");
+  static constexpr int kBK = 64;                     // one 128-byte row
+  static constexpr int kSlabs = BN / 64;
+  static constexpr int kConsumerWarps = 8;
+  static constexpr int kThreads = 32 * (kConsumerWarps + 1);
+  static constexpr int kWarpN = BN / kConsumerWarps;   // columns of a warp
+  static constexpr int kMT = kWarpN / 16;   // m16 tiles: columns of a warp
+  static constexpr int kNT = BT / 8;        // n8 tiles: the row block's rows
+  static constexpr int kABytes = BT * kBK * 2;
+  static constexpr int kBBytes = kBK * BN * 2;
+  static constexpr int kStageBytes = kABytes + kBBytes;
+  // Little's law: at ~1 us of HBM latency under load (an assumption; the
+  // card's is not measured here) each of the 132 SMs must keep 3.35 TB/s
+  // x 1 us / 132 = 25 KB in flight to draw its share of the bandwidth.
+  // The ring takes what shared memory holds (6 stages of 33-37 KB at BN
+  // 256), so 5 stages, ~170 KB, are in flight while one is read: ~7x the
+  // share, which lets the SMs still working at the tail of a launch draw
+  // the bandwidth the finished ones leave.
+  static constexpr int kStages =
+      (232448 / kDecodeBlocksPerSm - 1024 - 256) / kStageBytes;
+  static_assert(kStages >= 2, "a ring of two stages at least");
+  static constexpr size_t kSmemBytes =
+      1024 + static_cast<size_t>(kStages) * kStageBytes + 2 * kStages * 8;
+};
+
+struct DecodeMaps {
+  CUtensorMap x;     // (K, T) bf16, boxes of 64 x BT
+  CUtensorMap w;     // (N, K, E) bf16, boxes of 64 x 64 x 1
+};
+
+// out[r, c] = sum_k x[r, k] w[e, k, c], computed transposed: the weight
+// tile is mma's A operand (16 columns x 16 of K, read with ldmatrix.trans
+// from the K-major rows TMA wrote) and the row block's x its B operand (8
+// rows x 16 of K), so the BT rows fill mma's n8 side and no padding row is
+// multiplied.
+template <int BT, int BN>
+__global__ void __launch_bounds__(DecTile<BT, BN>::kThreads,
+                                  kDecodeBlocksPerSm)
+gmm_decode_kernel(const __grid_constant__ DecodeMaps maps,
+                  const int* __restrict__ gids, bf16* __restrict__ out,
+                  GmmShape g) {
+  using P = DecTile<BT, BN>;
+  constexpr int kSt = P::kStages;
+  extern __shared__ unsigned char smem_raw[];
+  // 128-byte swizzled boxes want 1024-byte aligned atoms
+  unsigned char* base =
+      smem_raw + ((1024 - (repro::smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(base + kSt * P::kStageBytes);
+  uint64_t* empty = full + kSt;
+  const int n_items = g.t_blocks * g.n_tiles;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kSt; ++i) {
+      repro::mbar_init(full + i, 1);
+      repro::mbar_init(empty + i, 32 * P::kConsumerWarps);
+    }
+    repro::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp == P::kConsumerWarps) {
+    // producer: one thread keeps the ring full.  The ring runs on across
+    // items, so the next item's weights stream while this one's epilogue
+    // stores, and no block drains before its last item.
+    if (lane == 0) {
+      int it = 0;   // stages issued so far: ring slot and round
+      for (int i = blockIdx.x; i < n_items; i += gridDim.x) {
+        const int rb = i / g.n_tiles, nt = i % g.n_tiles;
+        const int e = gids[rb];
+        if (e < 0 || e >= g.e) continue;   // NaN rows: nothing to load
+        for (int kt = 0; kt < g.k_steps; ++kt, ++it) {
+          const int st = it % kSt, round = it / kSt;
+          if (round > 0) repro::mbar_wait(empty + st, (round - 1) & 1);
+          unsigned char* s = base + st * P::kStageBytes;
+          // boxes past K or N count in full: TMA writes their zeros
+          repro::mbar_expect_tx(full + st, P::kStageBytes);
+          repro::tma_load_2d(s, &maps.x, full + st, kt * P::kBK, rb * BT);
+          for (int c = 0; c < P::kSlabs; ++c)
+            repro::tma_load_3d(s + P::kABytes + c * P::kBK * 128, &maps.w,
+                               full + st, nt * BN + c * 64, kt * P::kBK, e);
+        }
+      }
+    }
+    return;
+  }
+
+  // consumers: warp ``warp`` owns columns wn0 .. wn0 + kWarpN - 1 of an item
+  const int wn0 = warp * P::kWarpN;
+  const int gq = lane / 4, t = lane % 4;
+  // ldmatrix: lanes 8q .. 8q + 7 give the rows of matrix q
+  const int q = lane / 8, r8 = lane % 8;
+  int it = 0;
+  for (int i = blockIdx.x; i < n_items; i += gridDim.x) {
+    const int rb = i / g.n_tiles, nt = i % g.n_tiles;
+    const int e = gids[rb];
+    const long long row0 = static_cast<long long>(rb) * BT;
+    const int col0 = nt * BN + wn0;
+    if (e < 0 || e >= g.e) {
+      // an id outside [0, E): NaN rows, so any check of the output sees it
+      const uint32_t nan2 = pack_bf16(nan_f(), nan_f());
+      for (int v = lane; v < BT * P::kWarpN / 2; v += 32) {
+        const int c = col0 + 2 * (v % (P::kWarpN / 2));
+        if (c < g.n)
+          *reinterpret_cast<uint32_t*>(
+              out + (row0 + v / (P::kWarpN / 2)) * g.n + c) = nan2;
+      }
+      continue;
+    }
+
+    float acc[P::kMT][P::kNT][4];
+#pragma unroll
+    for (int m = 0; m < P::kMT; ++m)
+#pragma unroll
+      for (int j = 0; j < P::kNT; ++j)
+#pragma unroll
+        for (int v = 0; v < 4; ++v) acc[m][j][v] = 0.f;
+
+    for (int kt = 0; kt < g.k_steps; ++kt, ++it) {
+      const int st = it % kSt;
+      const unsigned char* xs = base + st * P::kStageBytes;
+      const unsigned char* ws = xs + P::kABytes;
+      repro::mbar_wait(full + st, (it / kSt) & 1);
+#pragma unroll
+      for (int kk = 0; kk < P::kBK; kk += 32) {
+        // B: x rows 8j + r8, K kk + 8q .. +7 (two 16-deep steps); row r of
+        // a swizzled box holds 16-byte chunk c at (c ^ (r % 8))
+        uint32_t b[P::kNT][4];
+#pragma unroll
+        for (int j = 0; j < P::kNT; ++j)
+          repro::ldmatrix_x4(b[j], xs + (8 * j + r8) * 128 +
+                                       (((kk / 8 + q) ^ r8) << 4));
+#pragma unroll
+        for (int s2 = 0; s2 < 2; ++s2) {
+          // A: weight rows (K) k16 + 8 (q / 2) + r8, columns 8 (q % 2) on
+          const int kr = kk + 16 * s2 + 8 * (q / 2) + r8;
+#pragma unroll
+          for (int m = 0; m < P::kMT; ++m) {
+            const int col = wn0 + 16 * m + 8 * (q % 2);
+            uint32_t a[4];
+            repro::ldmatrix_x4_trans(
+                a, ws + (col / 64) * (P::kBK * 128) + kr * 128 +
+                       ((((col % 64) / 8) ^ (kr % 8)) << 4));
+#pragma unroll
+            for (int j = 0; j < P::kNT; ++j)
+              repro::mma_bf16(acc[m][j], a, &b[j][2 * s2]);
+          }
+        }
+      }
+      // give the stage back: the proxy fence orders this thread's ldmatrix
+      // reads (generic proxy) before the TMA writes (async proxy) that the
+      // producer issues once every consumer has arrived.  Without it, two
+      // blocks a SM (3-stage rings) gave outputs that changed from call to
+      // call at block_t 16 and 32 (gmm_variants.py --decode --repeat).
+      repro::fence_proxy_async();
+      repro::mbar_arrive(empty + st);
+    }
+
+    // epilogue: acc[m][j] holds out^T at columns col0 + 16 m + gq (+ 8 for
+    // v 2, 3), rows 8 j + 2 t (+ 1 for v 1, 3).  Lanes gq and gq ^ 1 swap
+    // one value, so each holds two adjacent columns of one row: bf16 pairs.
+    // N % 8 == 0, so a pair is wholly inside N or wholly past it.
+    const bool odd = gq & 1;
+#pragma unroll
+    for (int m = 0; m < P::kMT; ++m)
+#pragma unroll
+      for (int j = 0; j < P::kNT; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const float lo = acc[m][j][2 * h], hi = acc[m][j][2 * h + 1];
+          const float got = __shfl_xor_sync(0xffffffffu, odd ? lo : hi, 4);
+          const int c = col0 + 16 * m + 8 * h + (gq & ~1);
+          const long long r = row0 + 8 * j + 2 * t + (odd ? 1 : 0);
+          if (c < g.n)
+            *reinterpret_cast<uint32_t*>(out + r * g.n + c) =
+                odd ? pack_bf16(got, hi) : pack_bf16(lo, got);
+        }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // float32: FMA pipes
 // ---------------------------------------------------------------------------
 template <int BT>
@@ -527,20 +571,6 @@ gmm_fma_kernel(const float* __restrict__ x, const float* __restrict__ w,
 // launch
 // ---------------------------------------------------------------------------
 template <int BT>
-int launch_mma(const void* x, const void* w, const int* gids, void* out,
-               long long n_blocks, int k, int n, int e, cudaStream_t s) {
-  using P = MmaTile<BT>;
-  static_assert(P::kSmemBytes <= 48 * 1024, "no shared-memory opt-in needed");
-  const int n_tiles = (n + P::kBN - 1) / P::kBN;
-  gmm_mma_kernel<BT><<<static_cast<unsigned>(n_blocks * n_tiles), kThreads,
-                       P::kSmemBytes, s>>>(
-      static_cast<const __nv_bfloat16*>(x),
-      static_cast<const __nv_bfloat16*>(w), gids,
-      static_cast<__nv_bfloat16*>(out), k, n, e, n_tiles);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <int BT>
 int launch_fma(const void* x, const void* w, const int* gids, void* out,
                long long n_blocks, int k, int n, int e, cudaStream_t s) {
   const int n_tiles = (n + FmaTile<BT>::kBN - 1) / FmaTile<BT>::kBN;
@@ -621,15 +651,70 @@ int launch_wgmma(const void* x, const void* w, const int* gids, void* out,
   return static_cast<int>(cudaGetLastError());
 }
 
-enum Kernel : int { kFma = 0, kMma = 1, kWgmma = 2 };
+// x (T, K) and w (E, K, N) as tensor maps (the prefill's boxes of x are
+// BT rows, of w the same 64 x 64 x 1); a persistent grid of
+// kDecodeBlocksPerSm blocks a SM.  The shared-memory opt-in and the SM
+// count come once per device; only the maps are encoded per call.
+template <int BT>
+int launch_decode(const void* x, const void* w, const int* gids, void* out,
+                  long long n_blocks, int k, int n, int e, cudaStream_t s) {
+  using P = DecTile<BT, kDecodeBN>;
+  int dev = 0;
+  int err = repro::current_device(&dev);
+  if (err) return err;
+  err = repro::once_per_device(dev, [] {
+    return static_cast<int>(cudaFuncSetAttribute(
+        gmm_decode_kernel<BT, kDecodeBN>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(P::kSmemBytes)));
+  });
+  if (err) return err;
+  const int n_sm = repro::sm_count(dev);
+  if (n_sm <= 0) return static_cast<int>(cudaErrorInvalidDevice);
+  const int col_tiles = (n + kDecodeBN - 1) / kDecodeBN;
+  const long long n_items = n_blocks * col_tiles;
+  if (n_blocks * BT > INT_MAX || n_items > INT_MAX) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  // an empty x or w (K or E 0) has no map: its encoding fails, and the
+  // launch is refused
+  const cuuint64_t x_dims[2] = {static_cast<cuuint64_t>(k),
+                                static_cast<cuuint64_t>(n_blocks) * BT};
+  const cuuint64_t x_strides[1] = {static_cast<cuuint64_t>(k) * 2};
+  const cuuint32_t x_box[2] = {64, BT};
+  const cuuint64_t w_dims[3] = {static_cast<cuuint64_t>(n),
+                                static_cast<cuuint64_t>(k),
+                                static_cast<cuuint64_t>(e)};
+  const cuuint64_t w_strides[2] = {static_cast<cuuint64_t>(n) * 2,
+                                   static_cast<cuuint64_t>(n) * k * 2};
+  const cuuint32_t w_box[3] = {64, 64, 1};
+  DecodeMaps maps;
+  if (!repro::encode_bf16_map(&maps.x, x, 2, x_dims, x_strides, x_box) ||
+      !repro::encode_bf16_map(&maps.w, w, 3, w_dims, w_strides, w_box)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  // items columns fastest: the blocks in flight read a window of
+  // consecutive row blocks, each row block's x from L2 after its first
+  // column tile, and each expert's weight once
+  const GmmShape g{static_cast<int>(n_blocks), col_tiles,
+                   (k + P::kBK - 1) / P::kBK, n, e, 1};
+  const long long slots = static_cast<long long>(n_sm) * kDecodeBlocksPerSm;
+  const int grid = static_cast<int>(n_items < slots ? n_items : slots);
+  gmm_decode_kernel<BT, kDecodeBN><<<grid, P::kThreads, P::kSmemBytes, s>>>(
+      maps, gids, static_cast<bf16*>(out), g);
+  return static_cast<int>(cudaGetLastError());
+}
+
+enum Kernel : int { kFma = 0, kDecode = 1, kWgmma = 2 };
 
 }  // namespace
 
 // x: (T, K); w: (E, K, N); gids: (T / block_t,) int32; out: (T, N); all
 // contiguous, x, w and out 16-byte aligned, K and N multiples of 8.
 // ``kernel`` names the kernel (the wrapper's kernel_for): 0 FMA (float32,
-// block_t 8 .. 128), 1 mma.sync (bfloat16, block_t 8, 16, 32), 2 wgmma +
-// TMA (bfloat16, block_t 64, 128); any other pair is refused.
+// block_t 8 .. 128), 1 decode (bfloat16, block_t 8, 16, 32: TMA +
+// mma.sync), 2 wgmma + TMA (bfloat16, block_t 64, 128); any other pair is
+// refused.
 // Returns cudaGetLastError().
 extern "C" int moe_gmm_fwd(const void* x, const void* w, const void* gids,
                            void* out, long long t, int k, int n, int e,
@@ -649,11 +734,11 @@ extern "C" int moe_gmm_fwd(const void* x, const void* w, const void* gids,
         case 128: return launch_fma<128>(x, w, g, out, nb, k, n, e, s);
         default: return bad;
       }
-    case kMma:
+    case kDecode:
       switch (block_t) {
-        case 8: return launch_mma<8>(x, w, g, out, nb, k, n, e, s);
-        case 16: return launch_mma<16>(x, w, g, out, nb, k, n, e, s);
-        case 32: return launch_mma<32>(x, w, g, out, nb, k, n, e, s);
+        case 8: return launch_decode<8>(x, w, g, out, nb, k, n, e, s);
+        case 16: return launch_decode<16>(x, w, g, out, nb, k, n, e, s);
+        case 32: return launch_decode<32>(x, w, g, out, nb, k, n, e, s);
         default: return bad;
       }
     case kWgmma:

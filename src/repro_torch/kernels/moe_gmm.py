@@ -24,7 +24,7 @@ from repro_torch.kernels.ref import wide
 DTYPES = (torch.float32, torch.bfloat16)
 BLOCK_TS = (128, 64, 32, 16, 8)   # the kernels' row tiles, largest first
 # The kernels of csrc/moe_gmm.cu, by the code its C entry takes.
-KERNEL_CODES = {"fma": 0, "mma": 1, "wgmma": 2}
+KERNEL_CODES = {"fma": 0, "decode": 1, "wgmma": 2}
 
 # Times moe_gmm has launched its kernel in this process.
 launches = 0
@@ -74,11 +74,12 @@ def check_args(x, w, block_group_ids, block_t: int) -> None:
 def kernel_for(dtype, block_t: int) -> str:
     """The kernel a CUDA call of (dtype, block_t) launches: bfloat16 row
     tiles of 64 and 128 (prefill) on wgmma + TMA, smaller bfloat16 tiles
-    (decode) on mma.sync, float32 on the FMA pipes."""
+    on the decode kernel (persistent, TMA-fed, mma.sync), float32 on the
+    FMA pipes."""
     if block_t not in BLOCK_TS:
         raise ValueError(f"block_t must be one of {BLOCK_TS}, got {block_t}")
     if dtype == torch.bfloat16:
-        return "wgmma" if block_t >= 64 else "mma"
+        return "wgmma" if block_t >= 64 else "decode"
     if dtype == torch.float32:
         return "fma"
     raise TypeError(f"moe_gmm takes float32 or bfloat16, got {dtype}")

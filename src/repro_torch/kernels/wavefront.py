@@ -26,13 +26,13 @@ launches = 0
 ROW_KEYS = ("tau_f", "tau_b", "t_dp", "credit", "nmv", "analytic")
 RES_KEYS = ("step_time", "makespan_body", "bubble", "dp_exposed", "err")
 
-MAX_STAGES = 1024        # one thread per stage, one block per record
+MAX_STAGES = 1024        # one thread a stage; past 32, a block a record
 
 
 @functools.cache
 def _fn():
     fn = _build.load("wavefront").wavefront_fwd
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -40,8 +40,8 @@ def _fn():
 
 @functools.cache
 def shared_bytes(S: int, L: int) -> int:
-    """Dynamic shared memory of a block that keeps its history and level
-    codes there (the kernel's own layout; builds the kernel)."""
+    """Dynamic shared memory of one record that keeps its history there
+    (the kernel's own layout; builds the kernel)."""
     fn = _build.load("wavefront").wavefront_shared_bytes
     fn.argtypes = [ctypes.c_int, ctypes.c_int]
     fn.restype = ctypes.c_longlong
@@ -68,6 +68,18 @@ def check_args(ldir, ldep_s, ldep_l, key_rows, rows) -> None:
                          f"{key_rows.dtype}")
     if len({t.device for t in (*tabs, key_rows, rows)}) != 1:
         raise ValueError("the wavefront takes all its tensors on one device")
+
+
+def pack_codes(ldir, ldep_s, ldep_l) -> torch.Tensor:
+    """The level codes the kernel's first pass packs, once a launch, in
+    plain PyTorch: (U, L, S) int32, level-major; -1 where stage s is idle
+    at level lv, else ``((dep + 1) << 1) | dir`` with ``dep = ldep_l * S +
+    ldep_s`` the dependency's place in a level-major (L, S) history, or -1
+    where the op has none."""
+    S = ldir.shape[1]
+    d, ds, dl = (t.transpose(1, 2).long() for t in (ldir, ldep_s, ldep_l))
+    dep1 = torch.where(ds >= 0, dl * S + ds + 1, 0)
+    return torch.where(d < 0, -1, (dep1 << 1) | d).to(torch.int32)
 
 
 def wavefront_plain(ldir, ldep_s, ldep_l, key_rows, rows) -> torch.Tensor:
@@ -143,19 +155,18 @@ def wavefront(ldir, ldep_s, ldep_l, key_rows, rows) -> torch.Tensor:
         return out
     limit = torch.cuda.get_device_properties(
         rows.device).shared_memory_per_block_optin
-    hist = code = None
-    if shared_bytes(S, L) > limit:      # scratch in device memory
+    # the keys' packed level codes, once a launch
+    code = torch.empty((U, L, S), dtype=torch.int32, device=rows.device)
+    hist = None
+    if shared_bytes(S, L) > limit:      # the history in device memory
         hist = torch.empty((K, L, S), dtype=torch.float64,
                            device=rows.device)
-        code = torch.empty((K, S, L), dtype=torch.int32, device=rows.device)
-    threads = 32 * ((S + 31) // 32)
     fn = _fn()
     with torch.cuda.device(rows.device):
         err = fn(*(t.data_ptr() for t in tabs), keys.data_ptr(),
                  rows.data_ptr(), out.data_ptr(),
-                 *(None if t is None else t.data_ptr() for t in (hist, code)),
-                 K, U, S, L, threads,
-                 torch.cuda.current_stream().cuda_stream)
+                 None if hist is None else hist.data_ptr(), code.data_ptr(),
+                 K, U, S, L, torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"wavefront kernel launch failed: CUDA error "
                            f"{err}")

@@ -31,6 +31,7 @@ import repro_torch.events.dag as t_dag
 from repro.events.compile_batch import compile_batch as r_compile_batch
 from repro_torch.events.compile_batch import compile_batch as t_compile_batch
 from repro_torch.kernels import wavefront
+from repro_torch.launch import wavefront_variants
 from repro_torch.obs import metrics
 
 RTOL = 1e-12
@@ -93,6 +94,64 @@ def test_wavefront_plain_matches_numpy(case):
     for i, name in enumerate(wavefront.RES_KEYS):
         np.testing.assert_allclose(out[i], ref[name], rtol=RTOL,
                                    err_msg=name)
+
+
+@pytest.mark.parametrize("case", sorted(KEYS))
+def test_pack_codes_match_a_loop_over_the_tables(case):
+    """The kernel's packed level codes (their plain version): each
+    (key, level, stage) cell by a direct loop over the (S, L) tables."""
+    ldir, ldep_s, ldep_l = t_batch._key_tables(tuple(KEYS[case]))
+    U, S, L = ldir.shape
+    code = wavefront.pack_codes(*(torch.from_numpy(np.array(t))
+                                  for t in (ldir, ldep_s, ldep_l)))
+    assert code.dtype == torch.int32 and tuple(code.shape) == (U, L, S)
+    want = np.empty((U, L, S), np.int64)
+    for u in range(U):
+        for s in range(S):
+            for lv in range(L):
+                d = int(ldir[u, s, lv])
+                ds, dl = int(ldep_s[u, s, lv]), int(ldep_l[u, s, lv])
+                dep = dl * S + ds if ds >= 0 else -1
+                want[u, lv, s] = -1 if d < 0 else (dep + 1) * 2 + d
+    assert np.array_equal(code.numpy(), want)
+
+
+@pytest.mark.parametrize("case", sorted(KEYS))
+def test_the_codes_replay_as_the_plain_wavefront(case):
+    """The kernel's level loop, written out over the packed codes (one
+    history read, a max, an add a level), gives wavefront_plain's
+    makespans bit for bit."""
+    keys = KEYS[case]
+    key_rows, rows = _inputs(keys, k=6, seed=1)
+    tabs = [torch.from_numpy(np.array(t))
+            for t in t_batch._key_tables(tuple(keys))]
+    code = wavefront.pack_codes(*tabs).numpy()
+    _, L, S = code.shape
+    body = wavefront.wavefront_plain(*tabs, torch.from_numpy(key_rows),
+                                     torch.from_numpy(rows))[1].numpy()
+    for k, key in enumerate(key_rows):
+        hist = np.zeros(L * S)
+        ends = np.zeros(S)
+        for lv in range(L):
+            for s in range(S):
+                c = int(code[key, lv, s])
+                dep = (c >> 1) - 1
+                v = max(ends[s], hist[dep] if dep >= 0 else 0.0) \
+                    + (rows[1, k] if c & 1 else rows[0, k])
+                hist[lv * S + s] = v if c >= 0 else 0.0
+                ends[s] = v if c >= 0 else ends[s]
+        assert ends.max() == body[k]
+
+
+@pytest.mark.parametrize("name", sorted(wavefront_variants.VARIANTS))
+def test_wavefront_variants_patch_the_kernel_source(name):
+    """Each timed variant of the wavefront kernel is the source with its
+    text replaced once (the probe refuses a patch that no longer
+    applies)."""
+    src = wavefront_variants.variant_source(wavefront_variants.VARIANTS[name])
+    assert "wavefront_kernel" in src
+    for old, new in wavefront_variants.VARIANTS[name]:
+        assert new in src and old not in src
 
 
 @pytest.mark.parametrize("case", sorted(KEYS))

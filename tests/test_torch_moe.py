@@ -148,15 +148,16 @@ def test_gmm_refuses_what_the_kernel_does_not_take(bad, match):
 
 @pytest.mark.parametrize("dtype,bt,kernel", [
     (torch.bfloat16, 128, "wgmma"), (torch.bfloat16, 64, "wgmma"),
-    (torch.bfloat16, 32, "mma"), (torch.bfloat16, 16, "mma"),
-    (torch.bfloat16, 8, "mma"),
+    (torch.bfloat16, 32, "decode"), (torch.bfloat16, 16, "decode"),
+    (torch.bfloat16, 8, "decode"),
     (torch.float32, 128, "fma"), (torch.float32, 64, "fma"),
     (torch.float32, 32, "fma"), (torch.float32, 16, "fma"),
     (torch.float32, 8, "fma"),
 ])
 def test_gmm_kernel_for_each_call(dtype, bt, kernel):
-    """bf16 prefill tiles reach wgmma + TMA, bf16 decode tiles mma.sync,
-    float32 the FMA kernel; the code passed for it is the C entry's."""
+    """bf16 prefill tiles reach wgmma + TMA, bf16 decode tiles the
+    persistent TMA-fed decode kernel, float32 the FMA kernel; the code
+    passed for it is the C entry's."""
     assert port_gmm.kernel_for(dtype, bt) == kernel
     assert kernel in port_gmm.KERNEL_CODES
 
@@ -179,13 +180,18 @@ def test_gmm_kernel_codes_match_the_c_entry():
     assert codes == port_gmm.KERNEL_CODES
 
 
-@pytest.mark.parametrize("name", sorted(gmm_variants.VARIANTS))
+@pytest.mark.parametrize("name", sorted(
+    {**gmm_variants.VARIANTS, **gmm_variants.DECODE_VARIANTS}))
 def test_gmm_variants_patch_the_kernel_source(name):
-    """Each timed variant of the wgmma kernel is the source with its text
-    replaced once (the probe refuses a patch that no longer applies)."""
-    src = gmm_variants.variant_source(gmm_variants.VARIANTS[name])
-    assert "gmm_wgmma_kernel" in src
-    for old, new in gmm_variants.VARIANTS[name]:
+    """Each timed variant of the wgmma kernel (and, with ``--decode``, of
+    the decode kernel) is the source with its text replaced once (the
+    probe refuses a patch that no longer applies)."""
+    decode = name in gmm_variants.DECODE_VARIANTS
+    patches = (gmm_variants.DECODE_VARIANTS if decode
+               else gmm_variants.VARIANTS)[name]
+    src = gmm_variants.variant_source(patches)
+    assert ("gmm_decode_kernel" if decode else "gmm_wgmma_kernel") in src
+    for old, new in patches:
         assert new in src and old not in src
 
 
